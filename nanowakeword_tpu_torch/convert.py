@@ -1,0 +1,119 @@
+"""Carry the JAX package's parameter trees over to the port's modules.
+
+Each function takes a flax variables tree as nested dicts of numpy arrays
+(`params`, and `batch_stats` where the model has BatchNorm), as the `.nww`
+and asset readers return it, and gives the port's `state_dict`.
+
+Layouts:
+* a 2-D conv kernel [kh, kw, in, out] becomes [out, in, kh, kw];
+* a 1-D conv kernel [k, in, out] becomes [out, in, k];
+* a Dense kernel [in, out] becomes a Linear weight [out, in];
+* LayerNorm and BatchNorm `scale` become `weight`, BatchNorm's running
+  `mean`/`var` become `running_mean`/`running_var`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from nanowakeword_tpu_torch.models.embedding import infer_encoder_arch
+
+
+def _t(a) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, np.float32))
+
+
+def _dense(p) -> dict:
+    return {"weight": _t(np.asarray(p["kernel"]).T), "bias": _t(p["bias"])}
+
+
+def _conv2d(p) -> dict:
+    return {"weight": _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1)),
+            "bias": _t(p["bias"])}
+
+
+def _conv1d(p) -> dict:
+    return {"weight": _t(np.asarray(p["kernel"]).transpose(2, 1, 0)),
+            "bias": _t(p["bias"])}
+
+
+def _layernorm(p) -> dict:
+    return {"weight": _t(p["scale"]), "bias": _t(p["bias"])}
+
+
+def _batchnorm(p, stats) -> dict:
+    return {"weight": _t(p["scale"]), "bias": _t(p["bias"]),
+            "running_mean": _t(stats["mean"]),
+            "running_var": _t(stats["var"]),
+            "num_batches_tracked": torch.tensor(0, dtype=torch.long)}
+
+
+def _rnn(p) -> dict:
+    return {"input_proj.weight": _t(np.asarray(p["input_proj"]["kernel"]).T),
+            "input_proj.bias": _t(p["input_proj"]["bias"]),
+            "recurrent.weight": _t(np.asarray(p["recurrent_kernel"]).T),
+            "recurrent.bias": _t(p["recurrent_bias"])}
+
+
+def _prefixed(prefix: str, d: dict) -> dict:
+    return {f"{prefix}.{k}": v for k, v in d.items()}
+
+
+def encoder_state_dict_from_flax(variables) -> dict:
+    """Encoder variables (conv4, wide128 or wide256) -> the state_dict of
+    models/embedding.py's module of the same architecture."""
+    params = variables.get("params", variables)
+    sd = _prefixed("dense", _dense(params["Dense_0"]))
+    if infer_encoder_arch(variables) == "conv4":
+        for i in range(4):
+            sd.update(_prefixed(f"convs.{i}", _conv2d(params[f"Conv_{i}"])))
+    else:
+        sd.update(_prefixed("conv0", _conv2d(params["Conv_0"])))
+        for i in range(3):
+            sd.update(_prefixed(f"convs.{i}",
+                                _conv1d(params[f"Conv_{i + 1}"])))
+    return sd
+
+
+def _dnn(p) -> dict:
+    sd = {}
+    n_dense = sum(1 for k in p if k.startswith("Dense_"))
+    for i in range(n_dense):
+        sd.update(_prefixed(f"linears.{i}", _dense(p[f"Dense_{i}"])))
+    for i in range(n_dense - 1):
+        sd.update(_prefixed(f"norms.{i}", _layernorm(p[f"LayerNorm_{i}"])))
+    return sd
+
+
+def _crnn(p, stats) -> dict:
+    sd = _prefixed("dense", _dense(p["Dense_0"]))
+    n_conv = sum(1 for k in p if k.startswith("Conv_"))
+    for i in range(n_conv):
+        sd.update(_prefixed(f"convs.{i}", _conv2d(p[f"Conv_{i}"])))
+        sd.update(_prefixed(f"norms.{i}", _batchnorm(
+            p[f"BatchNorm_{i}"], stats[f"BatchNorm_{i}"])))
+    (rnn_params,) = (v for k, v in p.items() if k.startswith("BiRNN_"))
+    for name, layer in rnn_params.items():
+        # FastGRU_j / FastLSTM_j, numbered in call order
+        j = int(name.rsplit("_", 1)[1])
+        sd.update(_prefixed(f"rnn.layers.{j}", _rnn(layer)))
+    return sd
+
+
+def model_state_dict_from_flax(variables, model) -> dict:
+    """A Model's variables ({"params", "batch_stats"}) -> the state_dict of
+    the port's `model.module` (a WakeWordModule)."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    if model.model_type == "dnn":
+        backbone = _dnn(params["backbone"])
+    elif model.model_type == "crnn":
+        backbone = _crnn(params["backbone"], stats["backbone"])
+    else:
+        raise NotImplementedError(
+            f"no weight conversion for model_type '{model.model_type}'")
+    sd = _prefixed("backbone", backbone)
+    sd.update(_prefixed("head_hidden", _dense(params["Dense_0"])))
+    sd.update(_prefixed("head_out", _dense(params["Dense_1"])))
+    return sd

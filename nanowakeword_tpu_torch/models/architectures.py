@@ -1,0 +1,136 @@
+"""The classifier backbones of the shipped artifacts, as torch modules.
+
+The counterparts of `get_activation`, `BiRNN`, `DNNModel` and `CRNNModel` in
+`nanowakeword_tpu/models/architectures.py`, on [B, T, 96] feature frames,
+emitting an `embedding_dim` vector for the shared head (models/model.py).
+The rest of the zoo is still to be ported (ROADMAP.md).
+
+flax infers input widths at first call; torch modules take them at
+construction, so each backbone here takes the input shape it will see.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable, Sequence
+
+import torch
+from torch import nn
+
+from nanowakeword_tpu_torch.models.fast_rnn import FastGRU, FastLSTM
+from nanowakeword_tpu_torch.utils.precision import no_tf32_convs
+
+Activation = Callable[[torch.Tensor], torch.Tensor]
+
+# flax's defaults, which differ from torch's (LayerNorm 1e-5)
+LAYERNORM_EPS = 1e-6
+BATCHNORM_EPS = 1e-5
+
+
+def get_activation(name: str) -> Activation:
+    """relu/gelu/silu selection. flax's gelu is the tanh approximation."""
+    name = (name or "relu").lower()
+    if name == "gelu":
+        return functools.partial(torch.nn.functional.gelu, approximate="tanh")
+    if name == "silu":
+        return torch.nn.functional.silu
+    return torch.relu
+
+
+class BiRNN(nn.Module):
+    """Multi-layer bidirectional LSTM/GRU over [B, T, F] -> [B, T, 2H].
+
+    `layers` holds the directions in the reference's call order: layer i's
+    forward RNN is `layers[2i]`, its backward RNN `layers[2i+1]` (flax names
+    them FastGRU_{2i} and FastGRU_{2i+1}). Inter-layer dropout only when
+    n_layers > 1.
+    """
+
+    def __init__(self, in_features: int, hidden: int, n_layers: int = 1,
+                 cell: str = "lstm", dropout: float = 0.0):
+        super().__init__()
+        rnn = FastGRU if cell == "gru" else FastLSTM
+        self.layers = nn.ModuleList()
+        for i in range(n_layers):
+            width = in_features if i == 0 else 2 * hidden
+            self.layers.append(rnn(width, hidden, reverse=False))
+            self.layers.append(rnn(width, hidden, reverse=True))
+        self.dropout = nn.Dropout(dropout if n_layers > 1 else 0.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n_layers = len(self.layers) // 2
+        for i in range(n_layers):
+            fwd, bwd = self.layers[2 * i], self.layers[2 * i + 1]
+            x = torch.cat([fwd(x), bwd(x)], dim=-1)
+            if i < n_layers - 1:
+                x = self.dropout(x)
+        return x
+
+
+class DNNModel(nn.Module):
+    """Flatten, then Dense -> LayerNorm -> act blocks (reference "dnn")."""
+
+    def __init__(self, input_shape, layer_dim: int, n_blocks: int,
+                 embedding_dim: int, dropout_prob: float,
+                 activation: Activation = torch.relu):
+        super().__init__()
+        n_in = 1
+        for s in input_shape:
+            n_in *= int(s)
+        widths = [n_in] + [layer_dim] * (n_blocks + 1)
+        self.linears = nn.ModuleList(
+            nn.Linear(a, b) for a, b in zip(widths, widths[1:]))
+        self.linears.append(nn.Linear(layer_dim, embedding_dim))
+        self.norms = nn.ModuleList(
+            nn.LayerNorm(layer_dim, eps=LAYERNORM_EPS)
+            for _ in range(n_blocks + 1))
+        self.dropout = nn.Dropout(dropout_prob)
+        self.activation = activation
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.reshape(x.shape[0], -1)
+        for i, norm in enumerate(self.norms):
+            x = self.activation(norm(self.linears[i](x)))
+            if i == 0:
+                x = self.dropout(x)
+        return self.linears[-1](x)
+
+
+class CRNNModel(nn.Module):
+    """Conv stack then bi-RNN, with the reference's geometry: the RNN scans
+    the reduced *feature* axis, with channels x reduced-time as the per-step
+    feature vector."""
+
+    def __init__(self, input_shape, cnn_channels: Sequence[int],
+                 rnn_type: str, rnn_hidden_size: int, n_rnn_layers: int,
+                 embedding_dim: int, dropout_prob: float,
+                 activation: Activation = torch.relu):
+        super().__init__()
+        t, f = (int(s) for s in input_shape)
+        chans = (1,) + tuple(int(c) for c in cnn_channels)
+        # k=3 SAME conv is padding=1; the (2, 2) max-pool is VALID and floors
+        self.convs = nn.ModuleList(
+            nn.Conv2d(a, b, 3, padding=1) for a, b in zip(chans, chans[1:]))
+        self.norms = nn.ModuleList(
+            nn.BatchNorm2d(c, eps=BATCHNORM_EPS) for c in chans[1:])
+        for _ in cnn_channels:
+            t, f = t // 2, f // 2
+        cell = "gru" if rnn_type.lower() == "gru" else "lstm"
+        dr = dropout_prob if n_rnn_layers > 1 else 0.0
+        self.rnn = BiRNN(chans[-1] * t, rnn_hidden_size, n_rnn_layers, cell,
+                         dr)
+        self.dropout = nn.Dropout(dropout_prob)
+        self.dense = nn.Linear(2 * rnn_hidden_size, embedding_dim)
+        self.activation = activation
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x[:, None]                              # [B, 1, T, F]
+        with no_tf32_convs():
+            for conv, norm in zip(self.convs, self.norms):
+                h = self.activation(norm(conv(h)))
+                h = torch.nn.functional.max_pool2d(h, 2, 2)
+        # [B, C, H', W'] -> sequence over W' with features C*H'
+        b, c, hc, wc = h.shape
+        seq = h.permute(0, 3, 1, 2).reshape(b, wc, c * hc)
+        out = self.rnn(seq)
+        return self.dense(self.dropout(out[:, -1, :]))

@@ -1,0 +1,136 @@
+"""The port on a CUDA device: the mel kernel against its plain version, and
+the serving path on the card against the same port on the CPU.
+
+Every test here is `gpu`-marked and skips without a CUDA device. On a
+machine with one: `python -m pytest -m gpu tests/test_torch_gpu.py -q`.
+This file imports only torch and the port (not the JAX package), so it runs
+where flax is not installed.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from nanowakeword_tpu_torch import AudioFeatures, NanoInterpreter
+from nanowakeword_tpu_torch.export.artifact import load_nww
+from nanowakeword_tpu_torch.interpreter.nanointerpreter import _LocalSession
+from nanowakeword_tpu_torch.ops import mel as TM
+from nanowakeword_tpu_torch.ops import mel_cuda
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CRNN = os.path.join(ROOT, "campaign", "hey_nano_crnn.nww")
+# kernel vs plain: the repo's bar (tests/test_mel_pallas.py); the port's
+# design makes them equal up to log10's last bit
+KERNEL_TOL = 2e-3
+# card vs CPU: f32 features through differently ordered sums, and the
+# score-trace bar of tests/test_score_trace.py for scores
+FEATURE_TOL = 1e-4
+SCORE_TOL = 1e-3
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _audio(rng, shape, dtype=np.int16):
+    return rng.integers(-20000, 20000, shape).astype(dtype)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((1, 16000), torch.float32), ((4, 16000), torch.int16),
+    ((3, 48000), torch.int16), ((5, 12345), torch.float32),
+    ((16000,), torch.float32), ((2, 16000), torch.bfloat16),
+    ((1600,), torch.float32), ((256, 32000), torch.int16),
+])
+def test_kernel_matches_plain(rng, cuda, shape, dtype):
+    x = torch.from_numpy(_audio(rng, shape)).to(cuda).to(dtype)
+    before = mel_cuda.launches
+    out = mel_cuda.mel_frontend_fused(x)
+    torch.cuda.synchronize()
+    assert mel_cuda.launches == before + 1
+    ref = mel_cuda.mel_frontend_plain(x)
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    assert (out - ref).abs().max().item() <= KERNEL_TOL
+
+
+def test_kernel_bf16_output_equals_cast_f32(rng, cuda):
+    x = torch.from_numpy(_audio(rng, (4, 16000))).to(cuda)
+    f32 = mel_cuda.mel_frontend_cuda(x)
+    b16 = mel_cuda.mel_frontend_cuda(x, out_dtype=torch.bfloat16)
+    assert b16.dtype == torch.bfloat16
+    assert torch.equal(b16, f32.to(torch.bfloat16))
+
+
+def test_kernel_int16_equals_float(rng, cuda):
+    x = torch.from_numpy(_audio(rng, (4, 16000))).to(cuda)
+    assert torch.equal(mel_cuda.mel_frontend_cuda(x),
+                       mel_cuda.mel_frontend_cuda(x.float()))
+
+
+def test_kernel_streaming_equals_batch(rng, cuda):
+    """The kernel's per-row arithmetic does not depend on a row's place in
+    its tile, so the streaming form equals the batch form bit for bit."""
+    x = torch.from_numpy(_audio(rng, 16000 * 2, np.float32)).to(cuda)
+    batch = mel_cuda.mel_frontend_cuda(x)
+    tail = torch.zeros(TM.LEFT_PAD, device=cuda)
+    frames = []
+    for c in range(x.shape[0] // TM.CHUNK):
+        buf = torch.cat([tail, x[c * TM.CHUNK:(c + 1) * TM.CHUNK]])
+        frames.append(mel_cuda.mel_frontend_cuda(buf)[2:])
+        tail = buf[-TM.LEFT_PAD:]
+    assert torch.equal(torch.cat(frames), batch[:len(frames) * 8])
+
+
+def test_kernel_rejects_bad_input(cuda):
+    with pytest.raises(TypeError):
+        mel_cuda.mel_frontend_cuda(torch.zeros(1600, dtype=torch.float64,
+                                               device=cuda))
+    with pytest.raises(TypeError):
+        mel_cuda.mel_frontend_cuda(torch.zeros(1600, device=cuda),
+                                   out_dtype=torch.float16)
+    with pytest.raises(ValueError):
+        mel_cuda.mel_frontend_cuda(torch.zeros(2, 3200, device=cuda)[:, ::2])
+    with pytest.raises(ValueError):
+        mel_cuda.mel_frontend_cuda(torch.zeros(1, 2, 1600, device=cuda))
+
+
+def test_batch_scoring_card_matches_cpu(rng, cuda):
+    clips = _audio(rng, (16, 32000))
+    scores = {}
+    for device in (cuda, "cpu"):
+        header, model, encoder = load_nww(CRNN, device=device)
+        features = AudioFeatures(encoder_state_dict=encoder, device=device)
+        feats = features.embed_clips(clips)
+        scores[str(device)] = (feats,
+                               _LocalSession(model, header).run_batch(feats))
+    (feats, s), (feats_c, s_c) = scores["cuda"], scores["cpu"]
+    np.testing.assert_allclose(feats, feats_c, atol=FEATURE_TOL)
+    np.testing.assert_allclose(s, s_c, atol=SCORE_TOL)
+
+
+def test_streaming_cascade_card_matches_cpu(cuda):
+    clip = np.clip(np.random.default_rng(5).normal(0, 3000, 16000 * 3),
+                   -32768, 32767).astype(np.int16)
+    results = {}
+    for device in (cuda, "cpu"):
+        interp = NanoInterpreter.load_model(CRNN, cascade=True,
+                                            gate_threshold=0.0,
+                                            device=device)
+        before = mel_cuda.launches
+        out = interp.predict_clip(clip)
+        results[str(device)] = (np.array([r.gate_score for r in out]),
+                                np.array([r.score for r in out]),
+                                mel_cuda.launches - before)
+    gate, verifier, launches = results["cuda"]
+    gate_c, verifier_c, launches_c = results["cpu"]
+    assert launches == 37 and launches_c == 0    # one per whole chunk
+    np.testing.assert_allclose(gate, gate_c, atol=SCORE_TOL)
+    np.testing.assert_allclose(verifier, verifier_c, atol=SCORE_TOL)
+    assert (verifier[15:] > 0).all()
