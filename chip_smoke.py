@@ -3,12 +3,18 @@
 
     python3 chip_smoke.py            # from the root of the repository
 
-It builds the port's CUDA kernel from the checkout, holds it against its
-plain PyTorch version, drives the serving path through the entry points a
-user calls (batch scoring with `AudioFeatures.embed_clips` and a session, and
-the streaming cascade `NanoInterpreter.load_model(..., cascade=True)`),
-compares the card's scores with the same port run on the CPU, and times the
-kernel, batch scoring and per-chunk streaming latency.
+It builds the port's CUDA kernels from the checkout and holds each against
+its plain PyTorch version. It drives the serving path through the entry
+points a user calls (batch scoring with `AudioFeatures.embed_clips` and a
+session, and the streaming cascade `NanoInterpreter.load_model(...,
+cascade=True)`), and compares the card's scores with the same port run on
+the CPU. Then it drives the training path: the `-t` transform stage
+(augmentation with the mix kernel, then features with the mel kernel) on
+synthesized wavs, `-T` device-cached training of the shipped CRNN at full
+width, one training step on the card against the CPU, and the exported
+`.nww` served by the interpreter on the card. It times both kernels against
+their plain versions, batch scoring, streaming latency, the transform stage
+and training steps.
 
 Phases print progress lines. Every check raises on failure, so any failed
 phase exits non-zero. The line before the last is a JSON object with the
@@ -24,13 +30,30 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CRNN = os.path.join(ROOT, "campaign", "hey_nano_crnn.nww")
 SEED = 0
 KERNEL_TOL = 2e-3   # kernel vs plain log-mel (tests/test_mel_pallas.py bar)
 SCORE_TOL = 1e-3    # card vs CPU scores (tests/test_score_trace.py bar)
+MIX_ULPS = 2.0 ** -22   # mix kernel vs plain, of max(|plain|, 1)
+                        # (tests/test_mix_pallas.py); 0 is expected
+STEP_RTOL = 1e-4    # one training step, card vs CPU: loss and grad norm
+WEIGHT_TOL = 1e-5   # ... and the updated weights and BatchNorm statistics
+# the shipped configuration (campaign/config_hey_nano.yaml)
+SHIPPED_AUGMENTATION = {"min_snr_in_db": 5.0, "max_snr_in_db": 30.0,
+                        "pitch_prob": 0.5, "gain_prob": 1.0, "rir_prob": 0.5}
+SHIPPED_CRNN = {"model_type": "crnn", "layer_size": 64, "n_blocks": 2,
+                "embedding_dim": 96, "crnn_cnn_channels": [16, 32, 32],
+                "crnn_rnn_type": "gru", "dropout_prob": 0.3,
+                "activation_function": "relu", "optimizer_type": "adamw",
+                "learning_rate_max": 0.0015, "lr_scheduler_type": "onecycle",
+                "weight_decay": 0.01}
+SHIPPED_COMPOSITION = {"t": 96, "pa": 28, "pah": 20, "wa": 16, "gen": 28,
+                       "dn": 36, "nz": 32}
 
 
 def log(msg: str) -> None:
@@ -89,12 +112,15 @@ def main() -> int:
     log(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
 
-    # -- 2. the build -------------------------------------------------------------
+    # -- 2. the build: one nvcc per kernel, all started together ----------------
     t0 = time.perf_counter()
-    lib = _build.build("mel_frontend")
-    log(f"[build] {os.path.relpath(lib, ROOT)} from "
-        f"{os.path.relpath(_build.CSRC / 'mel_frontend.cu', ROOT)} in "
-        f"{time.perf_counter() - t0:.2f} s")
+    names = ("mel_frontend", "mix_gain")
+    with ThreadPoolExecutor(len(names)) as pool:
+        libs = list(pool.map(_build.build, names))
+    for name, lib in zip(names, libs):
+        log(f"[build] {os.path.relpath(lib, ROOT)} from "
+            f"{os.path.relpath(_build.CSRC / (name + '.cu'), ROOT)}")
+    log(f"[build] {len(names)} kernels in {time.perf_counter() - t0:.2f} s")
 
     # -- 3. the kernel against its plain version, on the card ------------------------
     def audio(shape, dtype):
@@ -243,6 +269,13 @@ def main() -> int:
         f"host clock): p50 {np.percentile(lat_ms, 50):.3f} ms, p90 "
         f"{np.percentile(lat_ms, 90):.3f} ms over {len(lat_ms)} chunks")
 
+    # -- 7. the mix kernel against its plain version, on the card ---------------
+    mix = mix_phase(rng, cuda, card)
+
+    # -- 8-10. the training path ---------------------------------------------------
+    with tempfile.TemporaryDirectory(prefix="nww_smoke_") as work:
+        train = training_phases(rng, cuda, card, work)
+
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "nanowakeword_tpu"))
     check(not leaked, f"imported {leaked}")
@@ -256,11 +289,316 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+    }, {
+        "name": "mix_gain",
+        "route": "cuda",
+        "source": "nanowakeword_tpu_torch/csrc/mix_gain.cu",
+        "replaces": "nanowakeword_tpu/ops/mix_pallas.py:93",
+        "launches": train["mix_launches"],
+        "max_abs_err": mix["max_err"],
+        "ms": mix["ms"],
+        "plain_ms": mix["plain_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def mix_phase(rng, cuda, card) -> dict:
+    """Phase 7: the mix kernel against its plain version at the contract's
+    edges and the transform's shapes; malformed input raises; times at
+    [512, 32000] and [4096, 32000] int16."""
+    import numpy as np
+    import torch
+    from nanowakeword_tpu_torch.ops import mix_cuda
+
+    def inputs(b, n, dtype):
+        fg = torch.from_numpy(rng.integers(-20000, 20000, (b, n)).astype(
+            np.int16))
+        if dtype == torch.float32:
+            fg = fg.float() / 32768.0
+        nb = n // 128
+        q = rng.integers(0, nb, b)
+        q[0] = nb - 1
+        if b > 1:
+            q[1] = 0
+        has_bg = rng.random(b) < 0.6
+        has_bg[0] = True
+        if b > 2:
+            has_bg[2] = False
+        per_clip = [torch.from_numpy(q.astype(np.int32)),
+                    torch.from_numpy(rng.uniform(0.05, 3.0, b).astype(
+                        np.float32)),
+                    torch.from_numpy(has_bg),
+                    torch.from_numpy(rng.uniform(0.7, 1.4, b).astype(
+                        np.float32))]
+        bg = torch.from_numpy((rng.normal(0, 0.05, (b, n))).astype(
+            np.float32))
+        return [t.to(cuda) for t in [fg, bg] + per_clip]
+
+    def compare(args, label):
+        out = mix_cuda.mix_gain_cuda(*args)
+        torch.cuda.synchronize()
+        ref = mix_cuda.mix_gain_plain(*args)
+        check(out.shape == ref.shape and out.dtype == torch.float32,
+              f"mix shape {tuple(out.shape)}")
+        err = (out - ref).abs().max().item()
+        tol = MIX_ULPS * max(ref.abs().max().item(), 1.0)
+        log(f"[mix] {label}: max|kernel - plain| = {err:.3g} (bound "
+            f"{tol:.3g})")
+        check(err <= tol, f"mix kernel vs plain {err} > {tol}")
+        return err
+
+    max_err = 0.0
+    for b in (1, 3, 512):
+        for n in (1280, 16000, 32000):
+            for dtype in (torch.int16, torch.float32):
+                max_err = max(max_err, compare(
+                    inputs(b, n, dtype), f"[{b}, {n}] {str(dtype)[6:]}"))
+    fg, bg, q, scale, has_bg, gain = inputs(4, 1280, torch.int16)
+    for bad, label in (((fg[:, :1000], bg[:, :1000]), "n % 128 != 0"),
+                       ((fg.cpu(), bg.cpu()), "a CPU tensor")):
+        try:
+            mix_cuda.mix_gain_cuda(*bad, q, scale, has_bg, gain)
+        except ValueError as e:
+            log(f"[mix] {label} raises: {e}")
+        else:
+            raise RuntimeError(f"check failed: {label} did not raise")
+
+    times = {}
+    for b in (512, 4096):
+        args = inputs(b, 32000, torch.int16)
+        max_err = max(max_err, compare(args, f"[{b}, 32000] int16 (timed)"))
+        runs = {"plain": [], "kernel": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            fn = (mix_cuda.mix_gain_cuda if which == "kernel"
+                  else mix_cuda.mix_gain_plain)
+            runs[which].append(cuda_ms(lambda: fn(*args), 20))
+        times[b] = (min(runs["kernel"]), min(runs["plain"]))
+        log(f"[time] {card}: mix+gain [{b}, 32000] int16: kernel "
+            f"{runs['kernel']} ms, plain {runs['plain']} ms (CUDA events, "
+            f"mean of 20 after warm-up)")
+    return {"max_err": max_err, "ms": times[4096][0],
+            "plain_ms": times[4096][1]}
+
+
+def _write_corpus(rng, root) -> dict:
+    """Synthesized 16 kHz wavs: 64 positives (1-1.75 s), 64 negatives
+    (0.75-3 s), 8 backgrounds (3 s), 8 decaying-noise impulse responses."""
+    import numpy as np
+    from nanowakeword_tpu_torch.utils.audio_io import write_wav
+
+    dirs = {k: os.path.join(root, k) for k in ("pos", "neg", "noise", "rir")}
+    for d in dirs.values():
+        os.makedirs(d)
+
+    def burst(n, level):
+        env = np.abs(np.sin(np.linspace(0, rng.uniform(2, 6) * np.pi, n)))
+        return rng.normal(0, level, n) * env
+
+    for i in range(64):
+        write_wav(os.path.join(dirs["pos"], f"p{i}.wav"),
+                  burst(int(rng.integers(16000, 28000)), 5000))
+        write_wav(os.path.join(dirs["neg"], f"n{i}.wav"),
+                  burst(int(rng.integers(12000, 48000)), 3500))
+    for i in range(8):
+        write_wav(os.path.join(dirs["noise"], f"bg{i}.wav"),
+                  rng.normal(0, 1500, 48000))
+        t = np.arange(4800)
+        write_wav(os.path.join(dirs["rir"], f"r{i}.wav"),
+                  rng.normal(0, 20000, 4800) * np.exp(-t / rng.uniform(300,
+                                                                       900)))
+    return dirs
+
+
+def training_phases(rng, cuda, card, work) -> dict:
+    """Phases 8-10: -t, -T and serving the trained artifact, on the card."""
+    import numpy as np
+    import torch
+    from nanowakeword_tpu_torch import NanoInterpreter
+    from nanowakeword_tpu_torch.models.model import Model
+    from nanowakeword_tpu_torch.ops import mel_cuda, mix_cuda
+    from nanowakeword_tpu_torch.train.cached import (build_cached_data,
+                                                     make_cached_train_loop)
+    from nanowakeword_tpu_torch.train.optim import Optimizer
+    from nanowakeword_tpu_torch.trainer import run_pipeline
+
+    dirs = _write_corpus(rng, work)
+
+    def job(src, name):
+        return {"input_audio_dirs": [dirs[src]],
+                "output_filename": f"{name}.npy",
+                "use_background_noise": True, "use_rir": True,
+                "augmentation_rounds": 8}
+
+    config = {
+        "model_name": "smoke_crnn", "output_dir": os.path.join(work, "out"),
+        "clip_length_samples": 32000, "augmentation_batch_size": 512,
+        "feature_gen_num_workers": 8, "background_paths": [dirs["noise"]],
+        "rir_paths": [dirs["rir"]],
+        "augmentation_settings": dict(SHIPPED_AUGMENTATION),
+        "feature_generation_manifest": {"positive": job("pos", "pos"),
+                                        "negative": job("neg", "neg")},
+        **SHIPPED_CRNN,
+    }
+
+    # -- 8. the transform stage -------------------------------------------------
+    mix_cuda.reset_launches()
+    mel_cuda.reset_launches()
+    out = run_pipeline(config, transform_clips=True, device=cuda)
+    mix_launches, mel_launches = mix_cuda.launches, mel_cuda.launches
+    log(f"[transform] launches on the -t path: mix kernel {mix_launches}, "
+        f"mel kernel {mel_launches}")
+    check(mix_launches > 0, "the transform did not launch the mix kernel")
+    check(mel_launches > 0, "the transform did not launch the mel kernel")
+    feats = {k: np.load(os.path.join(out["feature_dir"], f"{k}.npy"))
+             for k in ("pos", "neg")}
+    for k, v in feats.items():
+        check(v.shape == (512, 16, 96) and np.isfinite(v).all()
+              and v.std() > 0, f"{k} features {v.shape}")
+    log(f"[transform] features pos {feats['pos'].shape}, neg "
+        f"{feats['neg'].shape}, finite; mean {feats['pos'].mean():.4f} / "
+        f"{feats['neg'].mean():.4f}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_pipeline(config, transform_clips=True, overwrite=True, device=cuda)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    log(f"[time] {card}: transform stage (decode + augment + features, batch "
+        f"512, 1024 clips of 2 s): {1024 / seconds:.1f} clips/s ({seconds:.3f}"
+        f" s, host clock, second run)")
+
+    # -- 9. device-cached training of the shipped CRNN at full width ------------
+    paths = {"pos": os.path.join(out["feature_dir"], "pos.npy"),
+             "neg": os.path.join(out["feature_dir"], "neg.npy")}
+    config.update({
+        "steps": 200, "early_stopping_patience": 0,
+        "device_cache": {"enabled": True, "steps_per_dispatch": 100},
+        "batch_composition": dict(SHIPPED_COMPOSITION),
+        "feature_manifest": {
+            "targets": {"t": paths["pos"]},
+            "negatives": {k: paths["neg"] for k in SHIPPED_COMPOSITION
+                          if k != "t"}},
+        "distillation": {"enabled": False},
+    })
+    t0 = time.perf_counter()
+    trained = run_pipeline(config, train_model=True, device=cuda)
+    log(f"[train] 2 dispatches x 100 steps, batch "
+        f"{sum(SHIPPED_COMPOSITION.values())}, in "
+        f"{time.perf_counter() - t0:.2f} s (first run, with set-up)")
+    history = trained["model"].history["loss"]
+    hardness = trained["dataset"].sample_hardness
+    check(len(history) == 200 and np.isfinite(history).all(),
+          f"loss history {len(history)}")
+    check(np.isfinite(hardness).all() and (hardness != 1.0).any(),
+          "hardness was not updated")
+    log(f"[train] loss {history[0]:.4f} -> {np.mean(history[-10:]):.4f} "
+        f"(mean of the last 10); hardness moved on "
+        f"{int((hardness != 1.0).sum())} of {hardness.size} rows")
+
+    model = Model(config=config, model_name="t", input_shape=(16, 96),
+                  model_type="crnn", layer_dim=64, n_blocks=2,
+                  dropout_prob=0.3, seed=SEED, device=cuda).train()
+    data = build_cached_data(trained["dataset"], SHIPPED_COMPOSITION,
+                             config["feature_manifest"], cuda)
+    optimizer = Optimizer(list(model.module.parameters()), config, 20000)
+    loop = make_cached_train_loop(model.module, optimizer, quotas=data.quotas,
+                                  replace=data.replace, k_steps=100)
+    gen = torch.Generator(device=cuda).manual_seed(SEED)
+    loop(data.hardness, gen, data.features, data.labels, data.pools)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop(data.hardness, gen, data.features, data.labels, data.pools)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    log(f"[time] {card}: device-cached training, shipped CRNN, batch 256: "
+        f"{100 / seconds:.2f} steps/s ({seconds * 10:.3f} ms/step over 100 "
+        f"steps after 100 warm-up, host clock after synchronize)")
+
+    step_card_vs_cpu(config, feats, cuda)
+
+    # -- 10. serve what was trained -------------------------------------------------
+    interp = NanoInterpreter.load_model(trained["artifact"], device=cuda)
+    clip = np.clip(rng.normal(0.0, 3000.0, 16000 * 3), -32768,
+                   32767).astype(np.int16)
+    results = interp.predict_clip(clip)
+    scores = np.array([r.score for r in results])
+    check(len(scores) > 0 and np.isfinite(scores).all()
+          and ((scores >= 0) & (scores <= 1)).all(), "served scores")
+    log(f"[serve] {os.path.basename(trained['artifact'])} on the card: "
+        f"{len(scores)} chunks, last score {scores[-1]:.4f}, max "
+        f"{scores.max():.4f}")
+    return {"mix_launches": mix_launches}
+
+
+def step_card_vs_cpu(config, feats, cuda) -> None:
+    """One AdamW step of the shipped CRNN from the same weights and batch
+    with dropout 0, on the card and on the CPU.
+
+    Adam's first step moves each weight by lr * g / (|g| + 1e-8) (plus the
+    weight decay), so an element whose clipped gradient sits near rounding
+    level (a conv bias right before a BatchNorm, a ReLU that flips at its
+    boundary) moves by a fraction of lr that the rounding decides: those
+    are bounded by 2 lr. Every element with |g| >= 1e-6 is held to 1e-5.
+    """
+    import numpy as np
+    import torch
+    from nanowakeword_tpu_torch.models.model import Model
+    from nanowakeword_tpu_torch.train.optim import Optimizer, global_norm
+    from nanowakeword_tpu_torch.train.step import make_loss, make_train_step
+
+    x = torch.from_numpy(np.concatenate([feats["pos"][:96],
+                                         feats["neg"][:160]]))
+    y = torch.cat([torch.ones(96), torch.zeros(160)])
+
+    def fresh(device):
+        return Model(config=config, model_name="t", input_shape=(16, 96),
+                     model_type="crnn", layer_dim=64, n_blocks=2,
+                     dropout_prob=0.0, seed=SEED, device=device).train()
+
+    runs = {}
+    for device in (cuda, torch.device("cpu")):
+        model = fresh(device)
+        optimizer = Optimizer(list(model.module.parameters()), config, 20000)
+        metrics = make_train_step(model.module, optimizer)(x.to(device),
+                                                           y.to(device))
+        runs[device.type] = (metrics.fetch().packed.numpy(),
+                             {k: v.cpu() for k, v in
+                              model.module.state_dict().items()})
+    (m_card, sd_card), (m_cpu, sd_cpu) = runs["cuda"], runs["cpu"]
+
+    # the CPU's clipped gradient, element by element
+    model = fresh("cpu")
+    names = [k for k, _ in model.module.named_parameters()]
+    grads = torch.autograd.grad(make_loss()(model.module(x).reshape(-1), y),
+                                list(model.module.parameters()))
+    clip = min(1.0, 1.0 / global_norm(list(grads)).item())
+    strict = {k: g.abs() * clip >= 1e-6 for k, g in zip(names, grads)}
+
+    loss_err = abs(m_card[0] - m_cpu[0]) / abs(m_cpu[0])
+    norm_err = abs(m_card[1] - m_cpu[1]) / abs(m_cpu[1])
+    lr = float(config["learning_rate_max"]) / 25.0      # onecycle, step 0
+    worst, worst_name, worst_noise, n_noise = 0.0, "", 0.0, 0
+    for k, v in sd_cpu.items():
+        if not torch.is_floating_point(v):
+            continue
+        diff = (sd_card[k] - v).abs()
+        mask = strict.get(k, torch.ones_like(v, dtype=torch.bool))
+        if diff[mask].numel() and diff[mask].max().item() > worst:
+            worst, worst_name = diff[mask].max().item(), k
+        if (~mask).any():
+            n_noise += int((~mask).sum())
+            worst_noise = max(worst_noise, diff[~mask].max().item())
+    log(f"[step] card vs CPU, one AdamW step of the shipped CRNN (batch 256, "
+        f"dropout 0): loss rel {loss_err:.3g}, grad norm rel {norm_err:.3g}; "
+        f"weights and BatchNorm stats max|diff| {worst:.3g} ({worst_name}); "
+        f"{n_noise} elements with |g| < 1e-6: max|diff| {worst_noise:.3g} "
+        f"(bound 2 lr = {2 * lr:.3g})")
+    check(loss_err <= STEP_RTOL and norm_err <= STEP_RTOL,
+          "loss or grad norm card vs CPU")
+    check(worst <= WEIGHT_TOL, f"weights card vs CPU {worst}")
+    check(worst_noise <= 2 * lr, f"rounding-level elements {worst_noise}")
 
 
 if __name__ == "__main__":

@@ -1,8 +1,10 @@
-"""Carry the JAX package's parameter trees over to the port's modules.
+"""Carry parameter trees between the JAX package's layout and the port's.
 
-Each function takes a flax variables tree as nested dicts of numpy arrays
-(`params`, and `batch_stats` where the model has BatchNorm), as the `.nww`
-and asset readers return it, and gives the port's `state_dict`.
+`*_state_dict_from_flax` take a flax variables tree as nested dicts of numpy
+arrays (`params`, and `batch_stats` where the model has BatchNorm), as the
+`.nww` and asset readers return it, and give the port's `state_dict`;
+`flax_variables_from_state_dict` is the inverse for a classifier, as the
+`.nww` writer stores it.
 
 Layouts:
 * a 2-D conv kernel [kh, kw, in, out] becomes [out, in, kh, kw];
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from nanowakeword_tpu_torch.models.embedding import infer_encoder_arch
+from nanowakeword_tpu_torch.models.fast_rnn import FastGRU
 
 
 def _t(a) -> torch.Tensor:
@@ -117,3 +120,73 @@ def model_state_dict_from_flax(variables, model) -> dict:
     sd.update(_prefixed("head_hidden", _dense(params["Dense_0"])))
     sd.update(_prefixed("head_out", _dense(params["Dense_1"])))
     return sd
+
+
+# -- the inverse: the port's state_dict -> flax variables -----------------------
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().cpu().numpy().astype(np.float32)
+
+
+def _sub(sd: dict, prefix: str) -> dict:
+    return {k[len(prefix) + 1:]: v for k, v in sd.items()
+            if k.startswith(prefix + ".")}
+
+
+def _dense_flax(sd) -> dict:
+    return {"bias": _np(sd["bias"]), "kernel": _np(sd["weight"]).T.copy()}
+
+
+def _conv2d_flax(sd) -> dict:
+    return {"bias": _np(sd["bias"]),
+            "kernel": _np(sd["weight"]).transpose(2, 3, 1, 0).copy()}
+
+
+def _rnn_flax(sd) -> dict:
+    return {"input_proj": _dense_flax(_sub(sd, "input_proj")),
+            "recurrent_bias": _np(sd["recurrent.bias"]),
+            "recurrent_kernel": _np(sd["recurrent.weight"]).T.copy()}
+
+
+def _count(sd: dict, prefix: str) -> int:
+    return len({k.split(".")[1] for k in sd if k.startswith(prefix + ".")})
+
+
+def flax_variables_from_state_dict(state_dict, model) -> dict:
+    """The port's `model.module.state_dict()` -> the JAX `Model`'s variables
+    ({"params"}, and {"batch_stats"} for the CRNN), as numpy arrays."""
+    sd = dict(state_dict)
+    bb = _sub(sd, "backbone")
+    if model.model_type == "dnn":
+        backbone = {f"Dense_{i}": _dense_flax(_sub(bb, f"linears.{i}"))
+                    for i in range(_count(bb, "linears"))}
+        for i in range(_count(bb, "norms")):
+            norm = _sub(bb, f"norms.{i}")
+            backbone[f"LayerNorm_{i}"] = {"bias": _np(norm["bias"]),
+                                          "scale": _np(norm["weight"])}
+        stats = None
+    elif model.model_type == "crnn":
+        backbone = {"Dense_0": _dense_flax(_sub(bb, "dense"))}
+        stats = {}
+        for i in range(_count(bb, "convs")):
+            norm = _sub(bb, f"norms.{i}")
+            backbone[f"Conv_{i}"] = _conv2d_flax(_sub(bb, f"convs.{i}"))
+            backbone[f"BatchNorm_{i}"] = {"bias": _np(norm["bias"]),
+                                          "scale": _np(norm["weight"])}
+            stats[f"BatchNorm_{i}"] = {"mean": _np(norm["running_mean"]),
+                                       "var": _np(norm["running_var"])}
+        name = "FastGRU" if isinstance(
+            model.module.backbone.rnn.layers[0], FastGRU) else "FastLSTM"
+        backbone["BiRNN_0"] = {
+            f"{name}_{j}": _rnn_flax(_sub(bb, f"rnn.layers.{j}"))
+            for j in range(_count(_sub(bb, "rnn"), "layers"))}
+    else:
+        raise NotImplementedError(
+            f"no weight conversion for model_type '{model.model_type}'")
+    params = {"Dense_0": _dense_flax(_sub(sd, "head_hidden")),
+              "Dense_1": _dense_flax(_sub(sd, "head_out")),
+              "backbone": backbone}
+    if stats is None:
+        return {"params": params}
+    return {"batch_stats": {"backbone": stats}, "params": params}

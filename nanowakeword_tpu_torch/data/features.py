@@ -149,20 +149,28 @@ class AudioFeatures:
     def embed_clips(self, x, batch_size: int = 128,
                     ncpu: int = 1) -> np.ndarray:
         """[N, samples] int16/float audio -> [N, frames, 96] float32.
-        batch_size bounds the device memory of one call."""
+        batch_size bounds the device memory of one call. `x` may be a numpy
+        array or a torch tensor (a tensor already on the device is used
+        where it lies)."""
         del ncpu
-        x = np.asarray(x)
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.asarray(x))
         if x.ndim == 1:
             x = x[None]
         # int16 PCM goes to the device unconverted: half the bytes, and the
         # kernel converts in registers (int16 -> f32 is exact)
-        in_dtype = np.int16 if x.dtype == np.int16 else np.float32
+        in_dtype = torch.int16 if x.dtype == torch.int16 else torch.float32
         outs = []
         for i in range(0, x.shape[0], batch_size):
-            batch = np.ascontiguousarray(x[i:i + batch_size], in_dtype)
-            audio = torch.from_numpy(batch).to(self.device)
+            audio = x[i:i + batch_size].to(self.device, in_dtype).contiguous()
             outs.append(self._embed_impl(audio).cpu().numpy())
         return np.concatenate(outs, axis=0)
+
+    def get_embedding_shape(self, audio_length: float, sr: int = 16000):
+        """Embedding shape of a clip of `audio_length` seconds."""
+        n = int(audio_length * sr)
+        return (batch_embedding_frames(melops.n_mel_frames(n)),
+                EMBEDDING_DIM)
 
     # -- streaming path ----------------------------------------------------------
 

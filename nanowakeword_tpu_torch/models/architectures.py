@@ -22,9 +22,11 @@ from nanowakeword_tpu_torch.utils.precision import no_tf32_convs
 
 Activation = Callable[[torch.Tensor], torch.Tensor]
 
-# flax's defaults, which differ from torch's (LayerNorm 1e-5)
+# flax's defaults, which differ from torch's (LayerNorm 1e-5; BatchNorm
+# running statistics updated with weight 0.1 and the unbiased variance)
 LAYERNORM_EPS = 1e-6
 BATCHNORM_EPS = 1e-5
+BATCHNORM_MOMENTUM = 0.99
 
 
 def get_activation(name: str) -> Activation:
@@ -35,6 +37,41 @@ def get_activation(name: str) -> Activation:
     if name == "silu":
         return torch.nn.functional.silu
     return torch.relu
+
+
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm over [B, C, H, W] with flax `nn.BatchNorm`'s training
+    semantics.
+
+    In training mode the batch statistics are mean(x) and the biased
+    variance mean(x^2) - mean(x)^2 (flax's fast variance, floored at 0)
+    over (B, H, W), and the running statistics move as
+    `running = 0.99 running + 0.01 batch`. Eval mode is torch's
+    BatchNorm2d on the running statistics, unchanged.
+    """
+
+    def __init__(self, num_features: int, eps: float = BATCHNORM_EPS,
+                 momentum: float = BATCHNORM_MOMENTUM):
+        # torch's momentum is the weight of the new batch: 1 - flax's
+        super().__init__(num_features, eps=eps, momentum=1.0 - momentum)
+        self.flax_momentum = momentum
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        dims = (0, 2, 3)
+        mean = x.mean(dims)
+        var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+        m = self.flax_momentum
+        with torch.no_grad():
+            self.running_mean.copy_(m * self.running_mean
+                                    + (1.0 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+            self.num_batches_tracked.add_(1)
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.view(shape)) * mul.view(shape) + \
+            self.bias.view(shape)
 
 
 class BiRNN(nn.Module):
@@ -111,8 +148,7 @@ class CRNNModel(nn.Module):
         # k=3 SAME conv is padding=1; the (2, 2) max-pool is VALID and floors
         self.convs = nn.ModuleList(
             nn.Conv2d(a, b, 3, padding=1) for a, b in zip(chans, chans[1:]))
-        self.norms = nn.ModuleList(
-            nn.BatchNorm2d(c, eps=BATCHNORM_EPS) for c in chans[1:])
+        self.norms = nn.ModuleList(FlaxBatchNorm2d(c) for c in chans[1:])
         for _ in cnn_channels:
             t, f = t // 2, f // 2
         cell = "gru" if rnn_type.lower() == "gru" else "lstm"

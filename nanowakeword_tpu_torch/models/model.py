@@ -3,18 +3,32 @@
 The counterpart of `build_backbone`, `WakeWordModule` and `Model` in
 `nanowakeword_tpu/models/model.py`, for the backbones ported so far ("dnn"
 and "crnn"). The head is Dense(E -> E/2) -> act -> Dropout -> Dense(-> 1).
+
+A fresh `Model` draws its weights with flax's initializers (lecun-normal
+kernels, zero biases, orthogonal GRU/LSTM recurrent kernels, unit norm
+scales) from a seeded `torch.Generator`, so a model the port trains from
+scratch starts from the reference's distribution. `variables` and
+`load_variables` speak the reference's flax layout (convert.py), which the
+`.nww` writer and the trainer's SWA pool use.
 """
 
 from __future__ import annotations
 
+import collections
+import math
 from typing import Optional
 
 import torch
 from torch import nn
 
+from nanowakeword_tpu_torch.convert import (flax_variables_from_state_dict,
+                                            model_state_dict_from_flax)
 from nanowakeword_tpu_torch.models import architectures as A
+from nanowakeword_tpu_torch.models.fast_rnn import FastGRU, FastLSTM
 
 PORTED_MODEL_TYPES = ("dnn", "crnn")
+# flax's truncated normal keeps [-2, 2] of a unit normal, whose std is this
+_TRUNC_STD = 0.87962566103423978
 
 
 def build_backbone(model_type: str, config, input_shape, layer_dim: int,
@@ -57,8 +71,47 @@ class WakeWordModule(nn.Module):
         return self.head_out(self.head_dropout(h))
 
 
+@torch.no_grad()
+def _lecun_normal_(w: torch.Tensor, fan_in: int,
+                   g: torch.Generator) -> None:
+    nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=g)
+    w.mul_(math.sqrt(1.0 / fan_in) / _TRUNC_STD)
+
+
+@torch.no_grad()
+def _orthogonal_(w: torch.Tensor, g: torch.Generator) -> None:
+    """flax's orthogonal init of the [H, kH] kernel, stored as its [kH, H]
+    transpose: a QR of a normal [kH, H] matrix with R's diagonal signs
+    folded in, so the flax kernel has orthonormal rows."""
+    a = torch.randn(w.shape, generator=g, dtype=torch.float64)
+    q, r = torch.linalg.qr(a)
+    w.copy_(q * torch.sign(torch.diagonal(r))[None, :])
+
+
+@torch.no_grad()
+def flax_init_(module: nn.Module, g: torch.Generator) -> None:
+    """Re-draw every weight of `module` with flax's default initializers."""
+    recurrent = {id(m.recurrent) for m in module.modules()
+                 if isinstance(m, (FastGRU, FastLSTM))}
+    for m in module.modules():
+        if isinstance(m, nn.Linear) and id(m) in recurrent:
+            _orthogonal_(m.weight, g)
+            m.bias.zero_()
+        elif isinstance(m, nn.Linear):
+            _lecun_normal_(m.weight, m.in_features, g)
+            m.bias.zero_()
+        elif isinstance(m, nn.Conv2d):
+            fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+            _lecun_normal_(m.weight, fan_in, g)
+            m.bias.zero_()
+        elif isinstance(m, (nn.LayerNorm, nn.BatchNorm2d)):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+
+
 class Model:
-    """Host-side model handle: an eval-mode WakeWordModule on `device`."""
+    """Host-side model handle: a WakeWordModule on `device`, eval mode by
+    default; `train()` makes its parameters trainable."""
 
     def __init__(self, config, model_name: str, n_classes: int = 1,
                  input_shape=(16, 96), model_type: str = "dnn",
@@ -73,23 +126,57 @@ class Model:
         self.input_shape = tuple(int(s) for s in input_shape)
         self.seconds_per_example = seconds_per_example
         self.device = torch.device(device)
+        self.history = collections.defaultdict(list)
+        self._build_args = {"layer_dim": layer_dim, "n_blocks": n_blocks,
+                            "dropout_prob": dropout_prob}
 
         activation = A.get_activation(config.get("activation_function", "relu"))
         self.embedding_dim = int(config.get("embedding_dim", 64))
-        # seeded initial weights without touching the global generator
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(seed)
-            backbone, stateful = build_backbone(
-                model_type, config, self.input_shape, layer_dim, n_blocks,
-                dropout_prob, self.embedding_dim, activation)
-            self.stateful = stateful
-            self.module = WakeWordModule(
-                backbone, self.embedding_dim, n_classes=n_classes,
-                dropout_prob=dropout_prob, activation=activation)
-        self.module.to(self.device).eval().requires_grad_(False)
+        backbone, stateful = build_backbone(
+            model_type, config, self.input_shape, layer_dim, n_blocks,
+            dropout_prob, self.embedding_dim, activation)
+        self.stateful = stateful
+        self.module = WakeWordModule(
+            backbone, self.embedding_dim, n_classes=n_classes,
+            dropout_prob=dropout_prob, activation=activation)
+        flax_init_(self.module, torch.Generator().manual_seed(seed))
+        self.module.to(self.device)
+        self.eval()
+
+    def train(self) -> "Model":
+        """Training mode: dropout and batch statistics on, gradients on."""
+        self.module.train().requires_grad_(True)
+        return self
+
+    def eval(self) -> "Model":
+        self.module.eval().requires_grad_(False)
+        return self
 
     def load_state_dict(self, state_dict) -> None:
         self.module.load_state_dict(state_dict, strict=True)
+
+    @property
+    def variables(self) -> dict:
+        """The weights in the reference's flax layout, as numpy arrays."""
+        return flax_variables_from_state_dict(self.module.state_dict(), self)
+
+    def load_variables(self, variables) -> None:
+        """Load weights given in the reference's flax layout."""
+        self.load_state_dict(model_state_dict_from_flax(variables, self))
+
+    @staticmethod
+    def average_models(state_dicts: list) -> dict:
+        """Average a list of state_dicts (floating-point entries only)."""
+        if not state_dicts:
+            raise ValueError("Cannot average an empty list of state dicts.")
+        out = {}
+        for k, first in state_dicts[0].items():
+            if torch.is_floating_point(first):
+                out[k] = sum(sd[k].float() for sd in state_dicts) / len(
+                    state_dicts)
+            else:
+                out[k] = first
+        return out
 
     @torch.no_grad()
     def __call__(self, x) -> torch.Tensor:

@@ -1,8 +1,10 @@
-"""Reader for flax's msgpack serialization, in pure Python on `struct`.
+"""Reader and writer for flax's msgpack serialization, in pure Python on
+`struct`.
 
-The counterpart of `flax.serialization.msgpack_restore`: the encoder assets
-and the `.nww` payloads of the JAX package are flax msgpack blobs, and this
-package reads them without `msgpack`, `flax` or `ml_dtypes`.
+The counterparts of `flax.serialization.msgpack_restore` and
+`msgpack_serialize`: the encoder assets and the `.nww` payloads of the JAX
+package are flax msgpack blobs, and this package reads and writes them
+without `msgpack`, `flax` or `ml_dtypes`.
 
 What flax writes (flax/serialization.py):
 * ordinary msgpack maps, arrays, str, bin, ints, floats, nil and bool;
@@ -14,7 +16,11 @@ What flax writes (flax/serialization.py):
   "shape": {...}, "chunks": {...}}`` maps.
 
 bfloat16 leaves decode to float32: the 16 stored bits are the top half of
-the float32 with the same value, so the conversion is exact.
+the float32 with the same value, so the conversion is exact. To write a
+bfloat16 leaf, wrap its 16-bit patterns in `Bfloat16Bits`. The writer
+sorts map keys, as flax's tree flattening does, and writes the smallest
+msgpack form of each value, as `msgpack.packb` does, so a tree of numpy
+arrays serializes to the same bytes as under flax.
 """
 
 from __future__ import annotations
@@ -153,3 +159,115 @@ def msgpack_restore(encoded: bytes):
 def read_msgpack_file(path: str):
     with open(path, "rb") as f:
         return msgpack_restore(f.read())
+
+
+# -- writer ------------------------------------------------------------------------
+
+
+class Bfloat16Bits:
+    """A bfloat16 array given by its uint16 bit patterns (numpy has no
+    bfloat16 type without ml_dtypes)."""
+
+    def __init__(self, bits: np.ndarray):
+        self.bits = np.ascontiguousarray(bits, np.uint16)
+
+
+def _pack_uint(n: int) -> bytes:
+    if n <= 0x7F:
+        return struct.pack(">B", n)
+    for code, fmt, top in ((0xCC, ">B", 0xFF), (0xCD, ">H", 0xFFFF),
+                           (0xCE, ">I", 0xFFFFFFFF)):
+        if n <= top:
+            return bytes([code]) + struct.pack(fmt, n)
+    return b"\xcf" + struct.pack(">Q", n)
+
+
+def _pack_int(n: int) -> bytes:
+    if n >= 0:
+        return _pack_uint(n)
+    if n >= -32:
+        return struct.pack(">b", n)
+    for code, fmt, low in ((0xD0, ">b", -0x80), (0xD1, ">h", -0x8000),
+                           (0xD2, ">i", -0x80000000)):
+        if n >= low:
+            return bytes([code]) + struct.pack(fmt, n)
+    return b"\xd3" + struct.pack(">q", n)
+
+
+def _sized(n: int, fix: int, fix_max: int, codes) -> bytes:
+    """Header of a str/bin/array/map of length n: the fix form when it
+    fits, else the 8/16/32-bit length form (codes; None where absent)."""
+    if fix is not None and n <= fix_max:
+        return bytes([fix | n])
+    for code, fmt, top in zip(codes, (">B", ">H", ">I"),
+                              (0xFF, 0xFFFF, 0xFFFFFFFF)):
+        if code is not None and n <= top:
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"msgpack object too large ({n})")
+
+
+def _pack_ext(code: int, data: bytes) -> bytes:
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if len(data) in fixed:
+        head = bytes([fixed[len(data)]])
+    else:
+        head = _sized(len(data), None, 0, (0xC7, 0xC8, 0xC9))
+    return head + struct.pack(">b", code) + data
+
+
+def _ndarray_bytes(shape, dtype_name: str, raw: bytes) -> bytes:
+    return _pack([list(int(s) for s in shape), dtype_name, raw])
+
+
+def _pack(obj) -> bytes:
+    if obj is None:
+        return b"\xc0"
+    if obj is True:
+        return b"\xc3"
+    if obj is False:
+        return b"\xc2"
+    if isinstance(obj, Bfloat16Bits):
+        return _pack_ext(_EXT_NDARRAY, _ndarray_bytes(
+            obj.bits.shape, "bfloat16", obj.bits.tobytes("C")))
+    if isinstance(obj, np.ndarray):
+        if obj.dtype.hasobject:
+            raise ValueError("object arrays cannot be serialized")
+        return _pack_ext(_EXT_NDARRAY, _ndarray_bytes(
+            obj.shape, obj.dtype.name, obj.tobytes("C")))
+    if isinstance(obj, np.generic):
+        return _pack_ext(_EXT_NPSCALAR, _ndarray_bytes(
+            (), obj.dtype.name, np.asarray(obj).tobytes("C")))
+    if isinstance(obj, int):
+        return _pack_int(obj)
+    if isinstance(obj, float):
+        return b"\xcb" + struct.pack(">d", obj)
+    if isinstance(obj, complex):
+        return _pack_ext(_EXT_COMPLEX, _pack([obj.real, obj.imag]))
+    if isinstance(obj, str):
+        data = obj.encode("utf-8")
+        return _sized(len(data), 0xA0, 31, (0xD9, 0xDA, 0xDB)) + data
+    if isinstance(obj, (bytes, bytearray)):
+        return _sized(len(obj), None, 0, (0xC4, 0xC5, 0xC6)) + bytes(obj)
+    if isinstance(obj, (list, tuple)):
+        return (_sized(len(obj), 0x90, 15, (None, 0xDC, 0xDD))
+                + b"".join(_pack(v) for v in obj))
+    if isinstance(obj, dict):
+        out = [_sized(len(obj), 0x80, 15, (None, 0xDE, 0xDF))]
+        for k in sorted(obj):
+            out.append(_pack(k))
+            out.append(_pack(obj[k]))
+        return b"".join(out)
+    raise TypeError(f"cannot serialize {type(obj).__name__} to msgpack")
+
+
+def msgpack_serialize(tree) -> bytes:
+    """Nested dicts of numpy arrays (and scalars, strings, lists) -> flax
+    msgpack bytes. Arrays above 1 GiB, which flax would chunk, raise."""
+    def check(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                check(v)
+        elif isinstance(t, np.ndarray) and t.nbytes > 2 ** 30:
+            raise ValueError("arrays above 1 GiB are not supported")
+    check(tree)
+    return _pack(tree)

@@ -1,5 +1,6 @@
-"""The port on a CUDA device: the mel kernel against its plain version, and
-the serving path on the card against the same port on the CPU.
+"""The port on a CUDA device: the mel and mix kernels against their plain
+versions, the serving path on the card against the same port on the CPU,
+and the augmentation chain launching the mix kernel.
 
 Every test here is `gpu`-marked and skips without a CUDA device. On a
 machine with one: `python -m pytest -m gpu tests/test_torch_gpu.py -q`.
@@ -16,8 +17,9 @@ import torch
 from nanowakeword_tpu_torch import AudioFeatures, NanoInterpreter
 from nanowakeword_tpu_torch.export.artifact import load_nww
 from nanowakeword_tpu_torch.interpreter.nanointerpreter import _LocalSession
+from nanowakeword_tpu_torch.ops import augment as TA
 from nanowakeword_tpu_torch.ops import mel as TM
-from nanowakeword_tpu_torch.ops import mel_cuda
+from nanowakeword_tpu_torch.ops import mel_cuda, mix_cuda
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CRNN = os.path.join(ROOT, "campaign", "hey_nano_crnn.nww")
@@ -28,6 +30,9 @@ KERNEL_TOL = 2e-3
 # score-trace bar of tests/test_score_trace.py for scores
 FEATURE_TOL = 1e-4
 SCORE_TOL = 1e-3
+# mix kernel vs plain: tests/test_mix_pallas.py's 2 ulp of the peak; the
+# kernel rounds as the plain version does, so 0 is expected
+MIX_ULPS = 2.0 ** -22
 
 pytestmark = pytest.mark.gpu
 
@@ -134,3 +139,59 @@ def test_streaming_cascade_card_matches_cpu(cuda):
     np.testing.assert_allclose(gate, gate_c, atol=SCORE_TOL)
     np.testing.assert_allclose(verifier, verifier_c, atol=SCORE_TOL)
     assert (verifier[15:] > 0).all()
+
+
+def _mix_inputs(rng, cuda, b, n, dtype):
+    fg = torch.from_numpy(_audio(rng, (b, n)))
+    if dtype == torch.float32:
+        fg = fg.float() / 32768.0
+    q = rng.integers(0, n // 128, b)
+    q[0] = n // 128 - 1
+    has_bg = rng.random(b) < 0.6
+    has_bg[0] = True
+    per_clip = [torch.from_numpy(q.astype(np.int32)),
+                torch.from_numpy(rng.uniform(0.05, 3.0, b).astype(np.float32)),
+                torch.from_numpy(has_bg),
+                torch.from_numpy(rng.uniform(0.7, 1.4, b).astype(np.float32))]
+    bg = torch.from_numpy(rng.normal(0, 0.05, (b, n)).astype(np.float32))
+    return [t.to(cuda) for t in [fg, bg] + per_clip]
+
+
+@pytest.mark.parametrize("b,n", [(1, 1280), (3, 16000), (512, 32000)])
+@pytest.mark.parametrize("dtype", [torch.int16, torch.float32])
+def test_mix_kernel_matches_plain(rng, cuda, b, n, dtype):
+    args = _mix_inputs(rng, cuda, b, n, dtype)
+    before = mix_cuda.launches
+    out = mix_cuda.mix_gain_fused(*args)
+    torch.cuda.synchronize()
+    assert mix_cuda.launches == before + 1
+    ref = mix_cuda.mix_gain_plain(*args)
+    tol = MIX_ULPS * max(ref.abs().max().item(), 1.0)
+    assert (out - ref).abs().max().item() <= tol
+
+
+def test_mix_kernel_rejects_bad_input(rng, cuda):
+    fg, bg, *per_clip = _mix_inputs(rng, cuda, 2, 1280, torch.int16)
+    with pytest.raises(ValueError, match="n % 128"):
+        mix_cuda.mix_gain_cuda(fg[:, :1000].contiguous(),
+                               bg[:, :1000].contiguous(), *per_clip)
+    with pytest.raises(ValueError, match="CUDA"):
+        mix_cuda.mix_gain_cuda(fg.cpu(), bg.cpu(), *per_clip)
+    with pytest.raises(ValueError, match="contiguous"):
+        mix_cuda.mix_gain_cuda(fg.t().contiguous().t(), bg, *per_clip)
+
+
+def test_augment_batch_launches_the_mix_kernel(rng, cuda):
+    b, n = 16, 32000
+    fg = torch.from_numpy(_audio(rng, (b, n), np.float32)).to(cuda)
+    bg = torch.from_numpy(rng.normal(0, 1500, (b, n)).astype(
+        np.float32)).to(cuda)
+    params = TA.AugmentParams.from_settings({"rir_prob": 0.0})
+    before = mix_cuda.launches
+    out = TA.augment_batch(fg, bg, torch.zeros(b, 100, device=cuda),
+                           np.full(b, n), torch.ones(b, dtype=bool),
+                           torch.zeros(b, dtype=bool), params,
+                           generator=torch.Generator().manual_seed(0))
+    assert mix_cuda.launches == before + 1
+    assert out.dtype == torch.int16 and out.shape == (b, n)
+    assert out.device.type == "cuda" and out.abs().max() > 0
