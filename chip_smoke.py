@@ -37,7 +37,11 @@ from concurrent.futures import ThreadPoolExecutor
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CRNN = os.path.join(ROOT, "campaign", "hey_nano_crnn.nww")
 SEED = 0
-KERNEL_TOL = 2e-3   # kernel vs plain log-mel (tests/test_mel_pallas.py bar)
+KERNEL_TOL = 2e-3   # kernel vs plain log-mel on float audio
+                    # (tests/test_mel_pallas.py bar); int16 audio must be equal
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM peaks (NVIDIA's data sheet)
+BF16_FLOP_PER_S = 989e12
+FP64_TC_FLOP_PER_S = 67e12      # FP64 tensor cores (NVIDIA's H100 data sheet)
 SCORE_TOL = 1e-3    # card vs CPU scores (tests/test_score_trace.py bar)
 MIX_ULPS = 2.0 ** -22   # mix kernel vs plain, of max(|plain|, 1)
                         # (tests/test_mix_pallas.py); 0 is expected
@@ -89,6 +93,20 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def mel_bound_ms(batch: int, n: int, fb_taps: int) -> tuple[float, str, float]:
+    """(least time, what bounds it, float64 floor) of the log-mel on an
+    int16 [batch, n] to f32: bytes at the memory rate against the hop DFT and
+    the filterbank at the bf16 rate of their operands; the floor is the hop
+    DFT at the FP64 tensor rate, which the kernel's float64 sums need."""
+    frames = -(-n // 160)
+    nbytes = batch * n * 2 + batch * frames * 32 * 4
+    hop_flop = batch * (frames + 2) * 160 * 256 * 2
+    flop = hop_flop + batch * frames * fb_taps * 2
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flop / BF16_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops
+            else "operations", hop_flop / FP64_TC_FLOP_PER_S * 1e3)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -127,24 +145,33 @@ def main() -> int:
         x = rng.integers(-20000, 20000, shape).astype(np.int16)
         return torch.from_numpy(x).to(cuda).to(dtype)
 
-    max_err = 0.0
-    cases = [((1, 16000), torch.float32), ((4, 16000), torch.int16),
-             ((3, 48000), torch.int16), ((5, 12345), torch.float32),
-             ((16000,), torch.float32), ((2, 16000), torch.bfloat16),
-             # the shapes of the main path: batch scoring, streaming step
-             ((1024, 32000), torch.int16), ((1600,), torch.float32)]
-    for shape, dtype in cases:
-        x = audio(shape, dtype)
+    def compare(x, label):
         out = mel_cuda.mel_frontend_cuda(x)
         torch.cuda.synchronize()
         ref = mel_cuda.mel_frontend_plain(x)
         check(out.shape == ref.shape, f"shape {tuple(out.shape)} vs "
               f"{tuple(ref.shape)}")
         err = (out - ref).abs().max().item()
-        log(f"[kernel] {shape} {str(dtype)[6:]}: max|kernel - plain| = "
-            f"{err:.3g}")
-        check(err <= KERNEL_TOL, f"kernel vs plain {err} > {KERNEL_TOL}")
-        max_err = max(max_err, err)
+        tol = 0.0 if x.dtype == torch.int16 else KERNEL_TOL
+        log(f"[kernel] {label} {str(x.dtype)[6:]}: max|kernel - plain| = "
+            f"{err:.3g} (bound {tol:g})")
+        check(err <= tol, f"kernel vs plain {err} > {tol}")
+        return err
+
+    max_err = 0.0
+    cases = [((1, 16000), torch.float32), ((4, 16000), torch.int16),
+             ((5, 12345), torch.float32), ((16000,), torch.float32),
+             ((2, 16000), torch.bfloat16),
+             # the streaming step of the main path
+             ((1600,), torch.float32)]
+    for shape, dtype in cases:
+        max_err = max(max_err, compare(audio(shape, dtype), str(shape)))
+    # int16 edges at the test shape and at batch scoring's [1024, 32000]
+    for shape in ((3, 48000), (1024, 32000)):
+        for kind in mel_cuda.INT16_EDGES:
+            x = mel_cuda.int16_edge_audio(rng, shape, kind)
+            max_err = max(max_err, compare(torch.from_numpy(x).to(cuda),
+                                           f"{shape} {kind}"))
     x = audio((4, 16000), torch.int16)
     f32 = mel_cuda.mel_frontend_cuda(x)
     b16 = mel_cuda.mel_frontend_cuda(x, out_dtype=torch.bfloat16)
@@ -152,6 +179,9 @@ def main() -> int:
           and torch.equal(b16, f32.to(torch.bfloat16)),
           "bf16 output differs from the cast f32 output")
     log("[kernel] out_dtype=bf16 equals the cast f32 output")
+    check(torch.equal(f32, mel_cuda.mel_frontend_cuda(x.float())),
+          "int16 and float32 input differ")
+    log("[kernel] int16 input equals the same samples as float32")
 
     # -- 4. batch scoring ----------------------------------------------------------------
     mel_cuda.reset_launches()
@@ -228,20 +258,33 @@ def main() -> int:
           "streaming did not launch the mel kernel")
 
     # -- 6. times ------------------------------------------------------------------------------
-    x = audio((4096, 16000), torch.int16)
-    err = (mel_cuda.mel_frontend_cuda(x)
-           - mel_cuda.mel_frontend_plain(x)).abs().max().item()
-    check(err <= KERNEL_TOL, f"kernel vs plain at [4096, 16000]: {err}")
-    max_err = max(max_err, err)
-    times = {"plain": [], "kernel": []}
-    for which in ("plain", "kernel", "kernel", "plain"):
-        fn = (mel_cuda.mel_frontend_cuda if which == "kernel"
-              else mel_cuda.mel_frontend_plain)
-        times[which].append(cuda_ms(lambda: fn(x), 20))
-    kernel_ms, plain_ms = min(times["kernel"]), min(times["plain"])
-    log(f"[time] {card}: log-mel [4096, 16000] int16: kernel "
-        f"{times['kernel']} ms, plain {times['plain']} ms "
-        f"(CUDA events, mean of 20 after warm-up)")
+    fb_taps = sum(len(t) for t in mel_cuda.filterbank_taps(
+        mel_cuda.melops.hopdft_tensors(torch.bfloat16, "cpu")[4]))
+    mel_times = {}
+    for n in (16000, 32000):
+        x = audio((4096, n), torch.int16)
+        max_err = max(max_err, compare(x, f"(4096, {n}) timed"))
+        times = {"plain": [], "kernel": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            fn = (mel_cuda.mel_frontend_cuda if which == "kernel"
+                  else mel_cuda.mel_frontend_plain)
+            times[which].append(cuda_ms(lambda: fn(x), 20))
+        bound, bound_by, fp64_floor = mel_bound_ms(4096, n, fb_taps)
+        mel_times[n] = (min(times["kernel"]), min(times["plain"]), bound,
+                        bound_by)
+        log(f"[time] {card}: log-mel [4096, {n}] int16: kernel "
+            f"{times['kernel']} ms, plain {times['plain']} ms (CUDA events, "
+            f"mean of 20 after warm-up); bound {bound:.4f} ms ({bound_by}); "
+            f"hop DFT at the FP64 tensor peak {fp64_floor:.4f} ms")
+    # the yardstick: what the tensor cores do at the hop DFT's shape in bf16
+    # (a different function; the port never calls it)
+    rows = torch.randn(4096 * 102, 160, device=cuda).to(torch.bfloat16)
+    basis = torch.randn(160, 256, device=cuda).to(torch.bfloat16)
+    yard = cuda_ms(lambda: torch.matmul(rows, basis), 20)
+    log(f"[time] {card}: yardstick bf16 torch.matmul [4096*102, 160] @ "
+        f"[160, 256]: {yard} ms")
+    del rows, basis
+    kernel_ms, plain_ms, mel_bound, mel_bound_by = mel_times[16000]
 
     clips = np.clip(rng.normal(0.0, 3000.0, (4096, 32000)), -32768,
                     32767).astype(np.int16)
@@ -289,6 +332,9 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+        "bound_ms": mel_bound,
+        "bound_by": mel_bound_by,
+        "library_ms": None,
     }, {
         "name": "mix_gain",
         "route": "cuda",
@@ -298,6 +344,9 @@ def main() -> int:
         "max_abs_err": mix["max_err"],
         "ms": mix["ms"],
         "plain_ms": mix["plain_ms"],
+        "bound_ms": mix["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -369,18 +418,25 @@ def mix_phase(rng, cuda, card) -> dict:
     times = {}
     for b in (512, 4096):
         args = inputs(b, 32000, torch.int16)
+        fg, bg, has_bg = args[0], args[1], args[4]
+        # fg read once, bg read where a clip has one, out written once, and
+        # the per-clip scalars; a few f32 operations per element are far below
+        nbytes = (fg.numel() * fg.element_size()
+                  + int(has_bg.sum()) * bg.shape[1] * bg.element_size()
+                  + fg.numel() * 4 + b * (4 + 4 + 1 + 4))
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
         max_err = max(max_err, compare(args, f"[{b}, 32000] int16 (timed)"))
         runs = {"plain": [], "kernel": []}
         for which in ("plain", "kernel", "kernel", "plain"):
             fn = (mix_cuda.mix_gain_cuda if which == "kernel"
                   else mix_cuda.mix_gain_plain)
             runs[which].append(cuda_ms(lambda: fn(*args), 20))
-        times[b] = (min(runs["kernel"]), min(runs["plain"]))
+        times[b] = (min(runs["kernel"]), min(runs["plain"]), bound)
         log(f"[time] {card}: mix+gain [{b}, 32000] int16: kernel "
             f"{runs['kernel']} ms, plain {runs['plain']} ms (CUDA events, "
-            f"mean of 20 after warm-up)")
+            f"mean of 20 after warm-up); bound {bound:.4f} ms (bytes)")
     return {"max_err": max_err, "ms": times[4096][0],
-            "plain_ms": times[4096][1]}
+            "plain_ms": times[4096][1], "bound_ms": times[4096][2]}
 
 
 def _write_corpus(rng, root) -> dict:

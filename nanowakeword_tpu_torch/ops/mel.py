@@ -21,14 +21,24 @@ bf16 matmul would return bf16, so the operands are rounded with
 ``.to(torch.bfloat16).float()``.
 
 The two matrix products (hop DFT and filterbank) sum in float64 and round
-once to float32. The products of bf16 values are exact, and in float64 their
-sums are exact for int16-scale PCM (37 significant bits at most) and within
-2^-53 for the power, so the result does not depend on the order of the sums: the
-CPU, cuBLAS and the CUDA kernel (ops/mel_cuda.py), which each sum in their
-own order, agree. With float32 sums they would not always: the power is then
-rounded to bf16, and a last-bit difference in the power can flip that
-rounding and move a log-mel value by up to 3.4e-3. Float64 products are not
-affected by the TF32 setting.
+once to float32. Every product of two bf16 values is exact in float64. In
+the hop DFT of int16-scale PCM the partial sums are exact as well (multiples
+of 2^-29 below 2^24), except for the 1147 basis entries that are float
+residues of cos/sin at multiples of pi/2 (|b| between 1.9e-23 and 1.3e-18).
+Their products, ~4e-14 at most, are kept or rounded away depending on the
+partial sums they meet, so the float64 sum depends on the order of the taps.
+That order reaches float32 in two cases only: where the exact sum sits on a
+float32 rounding midpoint (15-17% of the elements on int16 audio), since the
+residue part then decides the rounding, and where |S| < 2^-11, since the
+residues then reach the last bit; any other exact sum lies at least 2^-29
+from a midpoint. So results agree bit for bit only between sums in the same
+order: the CPU product and cuBLAS both chain the taps in ascending order, and
+the CUDA kernel (ops/mel_cuda.py) does the same on the FP64 tensor cores
+(nanowakeword_tpu_torch/tools/probe_hopdft_order.py). The filterbank sums
+each mel in ascending bin order. With float32 sums the results would differ
+much more often: the power is rounded to bf16, and a last-bit difference in
+the power can flip that rounding and move a log-mel value by up to 3.4e-3.
+Float64 products are not affected by the TF32 setting.
 """
 
 from __future__ import annotations

@@ -2,7 +2,9 @@
 version.
 
 `mel_frontend_cuda` launches the hand-written Hopper kernel
-(`csrc/mel_frontend.cu`), the counterpart of the TPU kernel
+(`csrc/mel_frontend.cu`: the hop DFT on the FP64 tensor cores, in the plain
+version's summation order, so int16 audio gives the plain version's output
+bit for bit), the counterpart of the TPU kernel
 `nanowakeword_tpu/ops/mel_pallas.py::mel_frontend_pallas`.
 `mel_frontend_plain` is the same function in plain PyTorch (ops/mel.py in
 bf16 mode). `mel_frontend_fused` picks by the device of its input: a CPU
@@ -17,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from nanowakeword_tpu_torch.ops import _build
@@ -24,6 +27,7 @@ from nanowakeword_tpu_torch.ops import mel as melops
 
 _IN_DTYPES = {torch.int16: 0, torch.float32: 1, torch.bfloat16: 2}
 _OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_TAPS = 16   # filterbank taps per mel the kernel keeps (MAXTAP in the .cu)
 
 # Kernel launches since import (or the last reset): a run shows with it that
 # the main path went through the kernel.
@@ -53,11 +57,59 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+INT16_EDGES = ("random", "32767", "-32768", "square", "silence", "impulse",
+               "ragged")
+
+
+def int16_edge_audio(rng, shape, kind: str):
+    """int16 [B, n] audio on which the kernel must equal its plain version
+    bit for bit: random, all 32767 (bf16 rounds it to 32768), all -32768, a
+    full-scale +-32767 square wave, silence, one impulse, or random with a
+    length that is not a multiple of 160 (n - 37). `rng` is a numpy
+    Generator."""
+    b, n = shape
+    if kind == "random":
+        return rng.integers(-32768, 32768, shape).astype(np.int16)
+    if kind == "ragged":
+        return rng.integers(-32768, 32768, (b, n - 37)).astype(np.int16)
+    if kind == "square":
+        wave = np.where((np.arange(n) // 80) % 2 == 0, 32767, -32767)
+        return np.ascontiguousarray(np.broadcast_to(wave, shape), np.int16)
+    if kind == "impulse":
+        x = np.zeros(shape, np.int16)
+        x[:, n // 3] = 32767
+        return x
+    fill = {"32767": 32767, "-32768": -32768, "silence": 0}[kind]
+    return np.full(shape, fill, np.int16)
+
+
+def filterbank_taps(fb: torch.Tensor) -> list[list[tuple[int, float]]]:
+    """For each mel, its nonzero (bin, weight) filterbank taps in ascending
+    bin order: the kernel's sparse filterbank sum."""
+    return [[(int(k), float(fb[k, m])) for k in torch.nonzero(fb[:, m])[:, 0]]
+            for m in range(fb.shape[1])]
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_constants(device: str):
     """(b0c, b0s, phase [4, 128], fb) float32 on `device`: the plain
-    version's bf16-rounded constants, so both use identical values."""
+    version's bf16-rounded constants, so both use identical values.
+
+    The kernel holds the bases in shared memory as bf16 and keeps at most
+    MAX_TAPS filterbank taps per mel; both are checked here, so a change to
+    the constants cannot silently change the kernel's sums.
+    """
     b0c, b0s, p_re, p_im, fb = melops.hopdft_tensors(torch.bfloat16, device)
+    for name, t in (("b0c", b0c), ("b0s", b0s), ("fb", fb)):
+        if not torch.equal(t.to(torch.bfloat16).float(), t):
+            raise ValueError(f"the mel kernel needs bf16 values in {name}")
+        if not ((t == 0) | (t.abs() >= torch.finfo(torch.float32).tiny)).all():
+            raise ValueError(f"the mel kernel needs zeros or normal numbers in "
+                             f"{name}")
+    taps = max(len(t) for t in filterbank_taps(fb.cpu()))
+    if taps > MAX_TAPS:
+        raise ValueError(f"a mel has {taps} filterbank taps; the kernel "
+                         f"keeps {MAX_TAPS}")
     phase = torch.stack([p_re[1], p_im[1], p_re[2], p_im[2]]).contiguous()
     return b0c.contiguous(), b0s.contiguous(), phase, fb.contiguous()
 

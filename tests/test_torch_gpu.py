@@ -23,8 +23,8 @@ from nanowakeword_tpu_torch.ops import mel_cuda, mix_cuda
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CRNN = os.path.join(ROOT, "campaign", "hey_nano_crnn.nww")
-# kernel vs plain: the repo's bar (tests/test_mel_pallas.py); the port's
-# design makes them equal up to log10's last bit
+# kernel vs plain on float audio: the repo's bar (tests/test_mel_pallas.py);
+# on int16 audio the kernel must equal the plain version bit for bit
 KERNEL_TOL = 2e-3
 # card vs CPU: f32 features through differently ordered sums, and the
 # score-trace bar of tests/test_score_trace.py for scores
@@ -48,21 +48,27 @@ def _audio(rng, shape, dtype=np.int16):
     return rng.integers(-20000, 20000, shape).astype(dtype)
 
 
-@pytest.mark.parametrize("shape,dtype", [
-    ((1, 16000), torch.float32), ((4, 16000), torch.int16),
-    ((3, 48000), torch.int16), ((5, 12345), torch.float32),
-    ((16000,), torch.float32), ((2, 16000), torch.bfloat16),
-    ((1600,), torch.float32), ((256, 32000), torch.int16),
-])
-def test_kernel_matches_plain(rng, cuda, shape, dtype):
-    x = torch.from_numpy(_audio(rng, shape)).to(cuda).to(dtype)
+@pytest.mark.parametrize("shape,dtype,kind", [
+    ((1, 16000), torch.float32, None), ((4, 16000), torch.int16, None),
+    ((5, 12345), torch.float32, None), ((16000,), torch.float32, None),
+    ((2, 16000), torch.bfloat16, None), ((1600,), torch.float32, None),
+    ((256, 32000), torch.int16, None),
+] + [(shape, torch.int16, kind) for shape in [(3, 48000), (1024, 32000)]
+     for kind in mel_cuda.INT16_EDGES])
+def test_kernel_matches_plain(rng, cuda, shape, dtype, kind):
+    if kind is None:
+        x = torch.from_numpy(_audio(rng, shape)).to(cuda).to(dtype)
+    else:
+        x = torch.from_numpy(mel_cuda.int16_edge_audio(rng, shape,
+                                                       kind)).to(cuda)
     before = mel_cuda.launches
     out = mel_cuda.mel_frontend_fused(x)
     torch.cuda.synchronize()
     assert mel_cuda.launches == before + 1
     ref = mel_cuda.mel_frontend_plain(x)
     assert out.shape == ref.shape and out.dtype == torch.float32
-    assert (out - ref).abs().max().item() <= KERNEL_TOL
+    tol = 0.0 if dtype == torch.int16 else KERNEL_TOL
+    assert (out - ref).abs().max().item() <= tol
 
 
 def test_kernel_bf16_output_equals_cast_f32(rng, cuda):
