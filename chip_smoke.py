@@ -12,9 +12,15 @@ the CPU. Then it drives the training path: the `-t` transform stage
 (augmentation with the mix kernel, then features with the mel kernel) on
 synthesized wavs, `-T` device-cached training of the shipped CRNN at full
 width, one training step on the card against the CPU, and the exported
-`.nww` served by the interpreter on the card. It times both kernels against
-their plain versions, batch scoring, streaming latency, the transform stage
-and training steps.
+`.nww` served by the interpreter on the card. Then the rest of the serving
+side: a stateful `streaming_gru` model streamed with its carry, the one-call
+streaming step (a replayed CUDA graph) against the same step run eagerly,
+and the remote-verifier server's scoring path with dynamic batching under
+64 streaming connections and 256 concurrent feature requests (and over a
+loopback WebSocket where `websockets` is installed). It times both kernels
+against their plain versions, batch scoring, streaming latency (eager and
+replayed), the server's requests per second, the transform stage and
+training steps.
 
 Phases print progress lines. Every check raises on failure, so any failed
 phase exits non-zero. The line before the last is a JSON object with the
@@ -45,6 +51,9 @@ FP64_TC_FLOP_PER_S = 67e12      # FP64 tensor cores (NVIDIA's H100 data sheet)
 SCORE_TOL = 1e-3    # card vs CPU scores (tests/test_score_trace.py bar)
 MIX_ULPS = 2.0 ** -22   # mix kernel vs plain, of max(|plain|, 1)
                         # (tests/test_mix_pallas.py); 0 is expected
+CARRY_TOL = 1e-5    # a carry threaded over 50 one-frame calls vs one call
+BATCH_TOL = 1e-5    # a request scored in a batch vs alone (the libraries
+                    # may choose by shape)
 STEP_RTOL = 1e-4    # one training step, card vs CPU: loss and grad norm
 WEIGHT_TOL = 1e-5   # ... and the updated weights and BatchNorm statistics
 # the shipped configuration (campaign/config_hey_nano.yaml)
@@ -319,6 +328,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="nww_smoke_") as work:
         train = training_phases(rng, cuda, card, work)
 
+    # -- 11-13. the rest of the serving side ------------------------------------------
+    with tempfile.TemporaryDirectory(prefix="nww_smoke_") as work:
+        serving_launches = stateful_phase(rng, cuda, work)
+    serving_launches += one_call_step_phase(cuda, card)
+    serving_launches += server_phase(rng, cuda, card)
+    log(f"[launches] mel kernel launches on the new serving paths: "
+        f"{serving_launches}")
+
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "nanowakeword_tpu"))
     check(not leaked, f"imported {leaked}")
@@ -328,7 +345,7 @@ def main() -> int:
         "route": "cuda",
         "source": "nanowakeword_tpu_torch/csrc/mel_frontend.cu",
         "replaces": "nanowakeword_tpu/ops/mel_pallas.py:269",
-        "launches": main_launches,
+        "launches": main_launches + serving_launches,
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -352,6 +369,315 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _tone_clip(seed: int):
+    """4 s of int16 audio: 1.5 s near silence, 1.5 s of a modulated tone in
+    the speech band (the VAD opens on it), 1 s of noise."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    t = np.arange(24000) / 16000
+    speech = (9000 * np.sin(2 * np.pi * 700 * t)
+              * (0.6 + 0.4 * np.sin(2 * np.pi * 4 * t)))
+    return np.concatenate([rng.normal(0, 30, 24000), speech,
+                           rng.normal(0, 3000, 16000)]).astype(np.int16)
+
+
+def stateful_phase(rng, cuda, work) -> int:
+    """Phase 11: a `streaming_gru` model at its default width (1 layer of
+    128 units), weights from seed 0, through save_nww and load_model; a 4 s
+    clip streamed on the card against the CPU; the carry threaded over 50
+    one-frame calls against one call on the 50 frames. -> mel launches."""
+    import numpy as np
+    import torch
+    from nanowakeword_tpu_torch import NanoInterpreter
+    from nanowakeword_tpu_torch.export.artifact import save_nww
+    from nanowakeword_tpu_torch.models.model import Model
+    from nanowakeword_tpu_torch.ops import mel_cuda
+
+    model = Model(config={}, model_name="smoke_sgru",
+                  model_type="streaming_gru", seed=SEED, device=cuda)
+    check(model.stateful, "streaming_gru is not stateful")
+    path = save_nww(os.path.join(work, "smoke_sgru.nww"), model=model,
+                    config={}, model_name="smoke_sgru")
+    clip = np.clip(rng.normal(0.0, 3000.0, 16000 * 4), -32768,
+                   32767).astype(np.int16)
+    mel_cuda.reset_launches()
+    traces = []
+    for device in (cuda, torch.device("cpu")):
+        interp = NanoInterpreter.load_model(path, device=device)
+        check(interp.is_stateful == {"smoke_sgru": True},
+              f"is_stateful {interp.is_stateful}")
+        scores = np.array([r.score for r in interp.predict_clip(clip)])
+        carry = interp.hidden_states["smoke_sgru"]
+        check(carry is not None and carry[0].device.type == device.type,
+              "the carry left the device")
+        traces.append((scores, carry[0].cpu().numpy()))
+        interp.reset()
+        check(interp.hidden_states["smoke_sgru"] is None, "reset kept a carry")
+    launches = mel_cuda.launches
+    (scores, carry), (scores_c, carry_c) = traces
+    err = float(np.abs(scores - scores_c).max())
+    carry_err = float(np.abs(carry - carry_c).max())
+    log(f"[stateful] streaming_gru (n_params {model.n_params()}): "
+        f"{len(scores)} chunks, last score {scores[-1]:.4f}; card vs CPU "
+        f"max|score| {err:.3g}, max|carry| {carry_err:.3g}; mel launches "
+        f"{launches}")
+    check(len(scores) == 50 and np.isfinite(scores).all()
+          and (scores[15:] > 0).all() and (scores <= 1).all(),
+          "stateful scores malformed")
+    check(err <= SCORE_TOL and carry_err <= SCORE_TOL,
+          "stateful card vs CPU")
+    check(launches >= 50, "the stateful stream did not launch the mel kernel")
+
+    x = torch.from_numpy(rng.normal(0, 1, (1, 50, 96)).astype(
+        np.float32)).to(cuda)
+    with torch.no_grad():
+        _, whole = model.module(x)
+        threaded = None
+        for t in range(50):
+            _, threaded = model.module(x[:, t:t + 1], threaded)
+    diff = (whole[0] - threaded[0]).abs().max().item()
+    log(f"[stateful] carry after 50 one-frame calls vs one call on 50 "
+        f"frames: max|diff| {diff:.3g} (bound {CARRY_TOL:g})")
+    check(diff <= CARRY_TOL, f"threaded carry {diff}")
+    return launches
+
+
+def one_call_step_phase(cuda, card) -> int:
+    """Phase 12: the shipped cascade with the VAD gate on. The replayed
+    graph against the same step run eagerly (equal bit for bit) and against
+    the CPU; per-chunk times of both. -> mel launches."""
+    import numpy as np
+    import torch
+    from nanowakeword_tpu_torch import NanoInterpreter
+    from nanowakeword_tpu_torch.ops import mel_cuda
+
+    clip = _tone_clip(SEED)
+    n_chunks = len(clip) // 1280
+
+    def load(device):
+        return NanoInterpreter.load_model(CRNN, cascade=True,
+                                          gate_threshold=0.0,
+                                          vad_threshold=0.3, device=device)
+
+    def stream(interp):
+        """-> (raw scores [chunks, 2], gated scores [chunks, 2], ms)."""
+        interp.reset()
+        interp.vad.reset()
+        raw, gated, ms = [], [], []
+        for c in range(n_chunks):
+            chunk = clip[c * 1280:(c + 1) * 1280]
+            if interp.preprocessor.device.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = interp.predict(chunk)       # ends with the scores on the host
+            ms.append((time.perf_counter() - t0) * 1e3)
+            raw.append([interp.raw_scores[n] for n in interp.models])
+            gated.append([r.gate_score, r.score])
+        return np.array(raw), np.array(gated), np.array(ms)
+
+    mel_cuda.reset_launches()
+    interp = load(cuda)
+    step = interp._fused_step
+    check(step is not None and step.graph is not None,
+          "load_model did not capture the step")
+    check(step.mel_launches_per_replay == 1,
+          f"{step.mel_launches_per_replay} mel launches in the graph")
+    step.use_graph = False
+    raw_e, gated_e, ms_e = stream(interp)
+    step.use_graph = True
+    before = mel_cuda.launches
+    raw_g, gated_g, ms_g = stream(interp)
+    replay_launches = mel_cuda.launches - before
+    launches = mel_cuda.launches
+    _, gated_c, _ = stream(load("cpu"))
+
+    check(replay_launches == n_chunks, f"{replay_launches} mel launches for "
+          f"{n_chunks} replayed chunks")
+    check(np.array_equal(raw_g, raw_e) and np.array_equal(gated_g, gated_e),
+          f"replayed step differs from the eager step by "
+          f"{np.abs(raw_g - raw_e).max()}")
+    cpu_err = float(np.abs(gated_g - gated_c).max())
+    opened = int(np.count_nonzero(gated_g[:, 1]))
+    log(f"[step] {n_chunks} chunks, cascade + VAD gate: replayed == eager "
+        f"bit for bit (raw and gated scores); card vs CPU max|score| "
+        f"{cpu_err:.3g}; verifier scored on {opened} chunks, zeroed by the "
+        f"VAD or warm-up on {n_chunks - opened}; mel launches: "
+        f"{replay_launches} for {n_chunks} replays")
+    check(cpu_err <= SCORE_TOL, f"one-call step card vs CPU {cpu_err}")
+    check(0 < opened < n_chunks, "the VAD gate never opened or never closed")
+    replay_ms = cuda_ms(step.graph.replay, 50)
+    log(f"[time] {card}: one replay of the captured step alone (CUDA "
+        f"events, mean of 50 back to back, no upload and no copy back): "
+        f"{replay_ms:.4f} ms")
+    for name, ms in (("eager step", ms_e), ("replayed graph", ms_g)):
+        log(f"[time] {card}: streaming predict per 80 ms chunk, {name} "
+            f"(cascade + VAD, host clock): p50 "
+            f"{np.percentile(ms[10:], 50):.3f} ms, p90 "
+            f"{np.percentile(ms[10:], 90):.3f} ms over {len(ms) - 10} chunks")
+    return launches
+
+
+def server_phase(rng, cuda, card) -> int:
+    """Phase 13: the shipped CRNN behind the server's message coroutine and
+    dynamic batcher: 64 concurrent `full` connections of 50 chunks (tag
+    0x03), then 256 concurrent feature requests (tag 0x01); every request
+    also scored alone, and a part of them on the CPU. -> mel launches."""
+    import asyncio
+    import json
+
+    import numpy as np
+    from nanowakeword_tpu_torch.interpreter import remote_verifier as rv
+    from nanowakeword_tpu_torch.ops import mel_cuda
+
+    n_conn, n_chunks, n_feat = 64, 50, 256
+    audio = np.clip(rng.normal(0.0, 3000.0, (n_conn, n_chunks * 1280)),
+                    -32768, 32767).astype(np.int16)
+    feats = rng.normal(0, 1, (n_feat, 1, 16, 96)).astype(np.float32)
+
+    def chunk_messages(i):
+        return [rv.encode_audio(audio[i, c * 1280:(c + 1) * 1280])
+                for c in range(n_chunks)]
+
+    reply_ms = {}   # client -> host time from each message to its reply
+
+    async def client(server, i):
+        state = server.connection()
+        out, reply_ms[i] = [], []
+        for message in chunk_messages(i):
+            t0 = time.perf_counter()
+            out.append(json.loads(await server.reply(message, state))["score"])
+            reply_ms[i].append((time.perf_counter() - t0) * 1e3)
+            await asyncio.sleep(0)      # a socket would yield here
+        return out
+
+    calls = []      # the batch size of every device call of `server`
+
+    async def load(server, conns):
+        """-> (scores [conns, chunks], seconds, device calls so far,
+        feature scores, seconds)."""
+        server.start()
+        t0 = time.perf_counter()
+        streamed = await asyncio.gather(*[client(server, i) for i in conns])
+        t1, stream_calls = time.perf_counter(), len(calls)
+        burst = await asyncio.gather(*[
+            server.reply(rv.encode_features(f), None) for f in feats])
+        t2 = time.perf_counter()
+        return (np.array(streamed), t1 - t0, stream_calls,
+                np.array([json.loads(r)["score"] for r in burst]), t2 - t1)
+
+    mel_cuda.reset_launches()
+    server = rv._ScoringServer(CRNN, "full", device=cuda)
+    run_batch = server.session.run_batch
+
+    def counting_run_batch(f):
+        calls.append(len(f))
+        return run_batch(f)
+
+    server.session.run_batch = counting_run_batch
+    streamed, s_stream, stream_calls, burst, s_burst = asyncio.run(
+        load(server, range(n_conn)))
+    launches = mel_cuda.launches
+    scored = int(np.count_nonzero(streamed))
+    # replies of scored requests: each waited for its round's batch
+    waited = np.array([reply_ms[i] for i in range(n_conn)])[streamed > 0]
+    check(streamed.shape == (n_conn, n_chunks) and burst.shape == (n_feat,),
+          "replies missing")
+    for name, a in (("streamed", streamed), ("feature", burst)):
+        check(np.isfinite(a).all() and ((a >= 0) & (a <= 1)).all(),
+              f"{name} replies outside [0, 1]")
+    check((streamed[:, :15] == 0).all() and (streamed[:, 15:] > 0).all(),
+          "warm-up replies")
+    check(launches == n_conn * n_chunks, f"{launches} mel launches for "
+          f"{n_conn * n_chunks} audio messages")
+
+    n_requests = scored + n_feat
+    burst_calls = len(calls) - stream_calls
+    log(f"[server] {n_conn} full connections x {n_chunks} chunks: "
+        f"{n_conn * n_chunks} audio messages, {scored} scored, in "
+        f"{stream_calls} device calls (batch sizes "
+        f"{min(calls[:stream_calls])}-{max(calls[:stream_calls])}, "
+        f"{stream_calls / scored:.3f} calls per scored request); {n_feat} "
+        f"concurrent feature requests in {burst_calls} device calls")
+    check(len(calls) < n_requests, f"{len(calls)} device calls for "
+          f"{n_requests} requests")
+    log(f"[time] {card}: server, {n_conn} concurrent full connections: "
+        f"{n_conn * n_chunks / s_stream:.1f} audio messages/s "
+        f"({scored / s_stream:.1f} scored requests/s; {s_stream:.3f} s, host "
+        f"clock); {n_feat} concurrent feature requests: "
+        f"{n_feat / s_burst:.1f} requests/s ({s_burst:.4f} s)")
+    log(f"[time] {card}: server, message to reply of a scored request under "
+        f"that load (host clock): p50 {np.percentile(waited, 50):.3f} ms, "
+        f"p90 {np.percentile(waited, 90):.3f} ms, max {waited.max():.3f} ms "
+        f"over {len(waited)} replies")
+
+    # every request once more, alone: no batcher, one connection at a time
+    alone = rv._ScoringServer(CRNN, "full", batching=False, device=cuda)
+
+    async def one_by_one():
+        streamed = [await client(alone, i) for i in range(n_conn)]
+        burst = [json.loads(await alone.reply(rv.encode_features(f),
+                                              None))["score"] for f in feats]
+        return np.array(streamed), np.array(burst)
+
+    streamed_1, burst_1 = asyncio.run(one_by_one())
+    err_stream = float(np.abs(streamed - streamed_1).max())
+    err_burst = float(np.abs(burst - burst_1).max())
+    log(f"[server] batched vs alone: max|score| {err_stream:.3g} (streamed), "
+        f"{err_burst:.3g} (features) (bound {BATCH_TOL:g})")
+    check(err_stream <= BATCH_TOL and err_burst <= BATCH_TOL,
+          "batched vs alone")
+
+    # the same server on the CPU, 4 of the connections and all features
+    cpu = rv._ScoringServer(CRNN, "full", device="cpu")
+    streamed_c, _, _, burst_c, _ = asyncio.run(load(cpu, range(4)))
+    err_c = max(float(np.abs(streamed[:4] - streamed_c).max()),
+                float(np.abs(burst - burst_c).max()))
+    log(f"[server] card vs CPU replies (4 connections, {n_feat} feature "
+        f"requests): max|score| {err_c:.3g}")
+    check(err_c <= SCORE_TOL, f"server card vs CPU {err_c}")
+
+    socket_transport(rv, cuda, audio[:4], streamed[:4], feats[:8], burst[:8])
+    return launches
+
+
+def socket_transport(rv, cuda, audio, streamed, feats, burst) -> None:
+    """The same requests through `serve` on a loopback WebSocket with
+    `_RemoteSession` as the client, where `websockets` is installed."""
+    import socket
+    import threading
+
+    import numpy as np
+    try:
+        import websockets  # noqa: F401
+    except ImportError:
+        log("[server] websockets is not installed: the WebSocket transport "
+            "was not exercised (the message coroutine was)")
+        return
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ready = threading.Event()
+    threading.Thread(
+        target=lambda: rv.serve(CRNN, pipeline="full", host="127.0.0.1",
+                                port=port, log_level="ERROR", device=cuda,
+                                _ready_callback=lambda srv: ready.set()),
+        daemon=True).start()
+    check(ready.wait(timeout=120), "the server did not start")
+    worst = 0.0
+    for i in range(len(audio)):
+        session = rv._RemoteSession(f"ws://127.0.0.1:{port}", "hey_nano_crnn",
+                                    pipeline="full", timeout=60)
+        got = [session.run_audio(audio[i, c * 1280:(c + 1) * 1280])
+               for c in range(audio.shape[1] // 1280)]
+        worst = max(worst, float(np.abs(np.array(got) - streamed[i]).max()))
+        for f, expected in zip(feats, burst):
+            worst = max(worst, abs(session.run(f)[0] - expected))
+        session.close()
+    log(f"[server] over a loopback WebSocket, {len(audio)} _RemoteSession "
+        f"clients: max|score - coroutine's| {worst:.3g}")
+    check(worst <= BATCH_TOL, f"socket vs coroutine {worst}")
 
 
 def mix_phase(rng, cuda, card) -> dict:

@@ -104,6 +104,42 @@ def _crnn(p, stats) -> dict:
     return sd
 
 
+_GRU_GATES = ("r", "z", "n")
+_LSTM_GATES = ("i", "f", "g", "o")
+
+
+def unirnn_state_dict_from_flax(p) -> dict:
+    """A flax `UniRNN`'s params (`GRUCell_i` / `OptimizedLSTMCell_i`, each a
+    Dense per gate: `ir/iz/in` with biases and `hr/hz/hn` with a bias on
+    `hn` only; for the LSTM `ii/if/ig/io` without and `hi/hf/hg/ho` with
+    biases) -> the state_dict of architectures.UniRNN, whose layers stack
+    the gates' kernels in that order."""
+    sd = {}
+    for name, cell in p.items():
+        i = int(name.rsplit("_", 1)[1])
+        gru = name.startswith("GRUCell")
+        gates = _GRU_GATES if gru else _LSTM_GATES
+
+        def stacked(side, leaf):
+            return _t(np.concatenate(
+                [np.asarray(cell[side + g][leaf]).T for g in gates], axis=0))
+
+        sd[f"layers.{i}.input_proj.weight"] = stacked("i", "kernel")
+        sd[f"layers.{i}.recurrent.weight"] = stacked("h", "kernel")
+        if gru:
+            sd[f"layers.{i}.input_proj.bias"] = stacked("i", "bias")
+            sd[f"layers.{i}.bias_hn"] = _t(cell["hn"]["bias"])
+        else:
+            sd[f"layers.{i}.recurrent.bias"] = stacked("h", "bias")
+    return sd
+
+
+def _streaming_gru(p) -> dict:
+    sd = _prefixed("dense", _dense(p["Dense_0"]))
+    sd.update(_prefixed("rnn", unirnn_state_dict_from_flax(p["UniRNN_0"])))
+    return sd
+
+
 def model_state_dict_from_flax(variables, model) -> dict:
     """A Model's variables ({"params", "batch_stats"}) -> the state_dict of
     the port's `model.module` (a WakeWordModule)."""
@@ -113,6 +149,8 @@ def model_state_dict_from_flax(variables, model) -> dict:
         backbone = _dnn(params["backbone"])
     elif model.model_type == "crnn":
         backbone = _crnn(params["backbone"], stats["backbone"])
+    elif model.model_type == "streaming_gru":
+        backbone = _streaming_gru(params["backbone"])
     else:
         raise NotImplementedError(
             f"no weight conversion for model_type '{model.model_type}'")
@@ -153,6 +191,32 @@ def _count(sd: dict, prefix: str) -> int:
     return len({k.split(".")[1] for k in sd if k.startswith(prefix + ".")})
 
 
+def flax_params_from_unirnn(sd) -> dict:
+    """architectures.UniRNN's state_dict -> the flax `UniRNN`'s params: the
+    inverse of `unirnn_state_dict_from_flax`."""
+    params = {}
+    for i in range(_count(sd, "layers")):
+        layer = _sub(sd, f"layers.{i}")
+        gru = "bias_hn" in layer
+        gates = _GRU_GATES if gru else _LSTM_GATES
+        w_i = np.split(_np(layer["input_proj.weight"]), len(gates))
+        w_h = np.split(_np(layer["recurrent.weight"]), len(gates))
+        cell = {}
+        for k, g in enumerate(gates):
+            cell["i" + g] = {"kernel": w_i[k].T.copy()}
+            cell["h" + g] = {"kernel": w_h[k].T.copy()}
+        if gru:
+            for k, b in enumerate(np.split(_np(layer["input_proj.bias"]), 3)):
+                cell["i" + gates[k]]["bias"] = b.copy()
+            cell["hn"]["bias"] = _np(layer["bias_hn"])
+        else:
+            for k, b in enumerate(np.split(_np(layer["recurrent.bias"]), 4)):
+                cell["h" + gates[k]]["bias"] = b.copy()
+        name = "GRUCell" if gru else "OptimizedLSTMCell"
+        params[f"{name}_{i}"] = cell
+    return params
+
+
 def flax_variables_from_state_dict(state_dict, model) -> dict:
     """The port's `model.module.state_dict()` -> the JAX `Model`'s variables
     ({"params"}, and {"batch_stats"} for the CRNN), as numpy arrays."""
@@ -181,6 +245,10 @@ def flax_variables_from_state_dict(state_dict, model) -> dict:
         backbone["BiRNN_0"] = {
             f"{name}_{j}": _rnn_flax(_sub(bb, f"rnn.layers.{j}"))
             for j in range(_count(_sub(bb, "rnn"), "layers"))}
+    elif model.model_type == "streaming_gru":
+        backbone = {"Dense_0": _dense_flax(_sub(bb, "dense")),
+                    "UniRNN_0": flax_params_from_unirnn(_sub(bb, "rnn"))}
+        stats = None
     else:
         raise NotImplementedError(
             f"no weight conversion for model_type '{model.model_type}'")

@@ -12,6 +12,11 @@ streaming step runs it on the 320-sample tail plus the new chunk and keeps
 the last 8 frames, which is `mel_streaming_step` computed the way the batch
 path computes it; so on the card, streaming equals batch exactly, as it does
 in the reference. Other compute dtypes use ops/mel.py directly.
+
+The streaming state lives in three buffers that are allocated once and
+written in place (`stream_step_`, `reset`), so a CUDA graph captured over a
+step keeps reading and writing the memory that `feature_buffer` and
+`get_features` read: the counterpart of the reference's donated state.
 """
 
 from __future__ import annotations
@@ -79,10 +84,13 @@ class AudioFeatures:
 
     `encoder_state_dict` is the encoder's weights in the port's layout (as
     `load_nww` returns them); by default the bundled pretrained encoder.
+    `encoder` is an encoder module already on `device` to use as it is:
+    many frontends (a server's connections) share one copy of the weights.
     """
 
     def __init__(self,
                  encoder_state_dict=None,
+                 encoder: torch.nn.Module = None,
                  sr: int = 16000,
                  ncpu: int = 1,
                  inference_framework: str = "torch",
@@ -96,12 +104,21 @@ class AudioFeatures:
         self.sr = sr
         self.device = torch.device(device)
         self.compute_dtype = compute_dtype
-        if encoder_state_dict is None:
-            encoder_state_dict = encoder_state_dict_from_flax(
-                default_encoder_variables())
-        self.encoder = encoder_from_state_dict(encoder_state_dict,
-                                               self.device)
+        if encoder is None:
+            if encoder_state_dict is None:
+                encoder_state_dict = encoder_state_dict_from_flax(
+                    default_encoder_variables())
+            encoder = encoder_from_state_dict(encoder_state_dict,
+                                              self.device)
+        self.encoder = encoder
         self._chunker = Chunker(CHUNK)
+        dev = self.device
+        self.state = StreamState(
+            tail=torch.empty(melops.LEFT_PAD, device=dev),
+            mel_buf=torch.empty(MEL_BUFFER_FRAMES, melops.N_MELS, device=dev),
+            feat_buf=torch.empty(FEATURE_BUFFER_FRAMES, EMBEDDING_DIM,
+                                 device=dev),
+        )
         self.reset()
 
     # -- pure compute ---------------------------------------------------------
@@ -127,6 +144,14 @@ class AudioFeatures:
         return StreamState(tail=buf[-melops.LEFT_PAD:], mel_buf=mel_buf,
                            feat_buf=feat_buf)
 
+    def stream_step_(self, chunk: torch.Tensor) -> None:
+        """One streaming step on `self.state`, written in place. The new
+        values are whole tensors before they are copied in, so no copy
+        reads what it overwrites."""
+        new = self._stream_step_impl(self.state, chunk)
+        for dst, src in zip(self.state, new):
+            dst.copy_(src)
+
     # -- lifecycle -------------------------------------------------------------
 
     def reset(self):
@@ -135,13 +160,9 @@ class AudioFeatures:
         self.accumulated_samples = 0
         self._chunker.reset()
         self._frames_seen = 0  # embedding frames emitted since reset
-        dev = self.device
-        self.state = StreamState(
-            tail=torch.zeros(melops.LEFT_PAD, device=dev),
-            mel_buf=torch.ones(MEL_BUFFER_FRAMES, melops.N_MELS, device=dev),
-            feat_buf=torch.zeros(FEATURE_BUFFER_FRAMES, EMBEDDING_DIM,
-                                 device=dev),
-        )
+        self.state.tail.zero_()
+        self.state.mel_buf.fill_(1.0)
+        self.state.feat_buf.zero_()
 
     # -- batch path -------------------------------------------------------------
 
@@ -186,8 +207,7 @@ class AudioFeatures:
             self.accumulated_samples = self._chunker.pending
             return self.accumulated_samples
         for chunk in chunks:
-            self.state = self._stream_step_impl(
-                self.state, torch.from_numpy(chunk).to(self.device))
+            self.stream_step_(torch.from_numpy(chunk).to(self.device))
         self._frames_seen += chunks.shape[0]
         self.accumulated_samples = self._chunker.pending
         return chunks.shape[0] * CHUNK

@@ -2,35 +2,50 @@
 device.
 
 The counterpart of `nanowakeword_tpu/interpreter/nanointerpreter.py` for
-local `.nww` models: `DetectionResult`, `_LocalSession`, and
-`NanoInterpreter` with `load_model()` (single models and cascades, with
-`<stem>_lite` gate auto-discovery), `predict()` (warm-up guard, zeroed first
-predictions, cascade gate, patience/debounce), `predict_clip()`, `reset()`
-and the score properties.
+`.nww` models: `DetectionResult`, `_LocalSession` (stateless models, and
+stateful ones that thread a carry), and `NanoInterpreter` with
+`load_model()` (single models and cascades with `<stem>_lite` gate
+auto-discovery, a remote verifier behind an optional local gate, or no local
+model at all), `predict()` (warm-up guard, zeroed first predictions, cascade
+gate, VAD gate, patience/debounce), `predict_clip()`, `listen()`, `reset()`,
+`stop()` and the score properties.
 
-Each 80 ms chunk is one eager step: the feature stream step and every
-model's score, with one copy of the scores back to the host.
+When every model is local, an 80 ms chunk is ONE device call (`_FusedStep`):
+the feature stream step and every model's score on static buffers, with one
+copy of the scores back to the host. On a CUDA device that call is a CUDA
+graph, captured once over the eager step and replayed per chunk; on the CPU
+the same step runs eagerly. With a remote session among the models,
+`predict()` takes the general path: one `session.run` per model, the
+verifier skipped while the gate is low.
 
-Not ported yet (ROADMAP.md): remote verifiers, `.onnx` models and the ONNX
-frontend, the VAD gate (`vad_threshold > 0`), noise reduction and
-`listen()`; each raises NotImplementedError.
+Not ported (ROADMAP.md): `.onnx` models and the ONNX frontend; each raises
+NotImplementedError.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import threading
+import time
 import warnings
 import wave
 from collections import defaultdict, deque
 from functools import partial
-from typing import Dict, List, Optional, Union
+from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
 from nanowakeword_tpu_torch.data.features import CHUNK, AudioFeatures
 from nanowakeword_tpu_torch.export.artifact import EXTENSION, load_nww
+from nanowakeword_tpu_torch.ops import mel_cuda
+
+try:
+    import noisereduce as nr
+    NOISEREDUCE_AVAILABLE = True
+except ImportError:
+    NOISEREDUCE_AVAILABLE = False
 
 
 class DetectionResult:
@@ -85,54 +100,166 @@ class DetectionResult:
 
 class _LocalSession:
     """An eval session over a loaded .nww Model. Outputs the sigmoid
-    probability, the exported-graph contract."""
+    probability, the exported-graph contract. A stateful model takes and
+    returns a carry: a tuple of tensors that stays on the model's device."""
 
     def __init__(self, model, header):
-        if header.get("stateful", False):
-            raise NotImplementedError("stateful models are not ported yet")
         self.model = model
         self.header = header
-        self.stateful = False
+        self.stateful = bool(header.get("stateful", False))
 
     @property
     def feature_length(self) -> int:
         return int(self.header["input_shape"][0])
 
-    def scores(self, feats: torch.Tensor) -> torch.Tensor:
-        """[B, T, F] tensor on the model's device -> [B] probabilities."""
+    def scores(self, feats: torch.Tensor, carry=None):
+        """[B, T, F] tensor on the model's device -> [B] probabilities; for
+        a stateful model `(probabilities, new carry)`, from `carry` (None is
+        the zero state)."""
+        if self.stateful:
+            logits, new_carry = self.model.module(feats, carry)
+            return torch.sigmoid(logits).reshape(-1), new_carry
         return torch.sigmoid(self.model.module(feats)).reshape(-1)
+
+    def _tensor(self, feats) -> torch.Tensor:
+        return torch.as_tensor(feats, dtype=torch.float32,
+                               device=self.model.device)
 
     @torch.no_grad()
     def run(self, feats: np.ndarray, carry=None):
-        """[1, T, F] features -> (probability, carry); carry stays None."""
-        del carry
-        probs = self.scores(torch.as_tensor(feats, dtype=torch.float32,
-                                            device=self.model.device))
-        return float(probs[0]), None
+        """[1, T, F] features -> (probability, new carry); the carry of a
+        stateless model is None."""
+        if self.stateful:
+            probs, new_carry = self.scores(self._tensor(feats), carry)
+            return float(probs[0]), new_carry
+        return float(self.scores(self._tensor(feats))[0]), None
 
     @torch.no_grad()
     def run_batch(self, feats: np.ndarray) -> np.ndarray:
-        """[B, T, F] -> [B] probabilities."""
-        probs = self.scores(torch.as_tensor(feats, dtype=torch.float32,
-                                            device=self.model.device))
-        return probs.cpu().numpy()
+        """[B, T, F] -> [B] probabilities (stateless models; the server's
+        dynamic batching path)."""
+        return self.scores(self._tensor(feats)).cpu().numpy()
+
+
+def _tree_tensors(tree) -> list:
+    """The tensors of a carry (nested tuples of tensors), in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for sub in tree for t in _tree_tensors(sub)]
+
+
+class _FusedStep:
+    """One device call per 80 ms chunk: the feature stream step, then EVERY
+    local model's score, stateless and stateful, on static buffers (the
+    chunk in, the frontend's rings and the models' carries updated in place,
+    the scores out).
+
+    On a CUDA device the call is one `torch.cuda.CUDAGraph`, captured over
+    `_step` after eager warm-up steps on a side stream (the warm-up builds
+    the mel kernel, fills its constants and lets cuDNN and cuBLAS settle;
+    none of that may happen under capture) and replayed once per chunk. The
+    state that warm-up touched is put back before the first real chunk. If
+    capture fails, `run` raises; there is no eager way back on the card.
+    On a CPU device `_step` runs eagerly. A graph must not be replayed from
+    two threads at once: an interpreter serves one stream.
+    """
+
+    WARMUP_STEPS = 3
+
+    def __init__(self, interp: "NanoInterpreter"):
+        self.interp = interp
+        self.pre = interp.preprocessor
+        self.names = list(interp.models)
+        self.sessions = [interp.models[n] for n in self.names]
+        self.lengths = [interp.model_feature_length[n] for n in self.names]
+        device = self.pre.device
+        self.chunk = torch.zeros(CHUNK, device=device)
+        self.scores = torch.zeros(len(self.names), device=device)
+        self.carries = {}
+        for name, session, length in zip(self.names, self.sessions,
+                                         self.lengths):
+            if session.stateful:
+                self.carries[name] = session.model.module.backbone \
+                    .initial_carry(self.pre.state.feat_buf[-length:][None])
+        self.use_graph = device.type == "cuda"
+        self.graph: Optional["torch.cuda.CUDAGraph"] = None
+        self.mel_launches_per_replay = 0
+
+    @torch.no_grad()
+    def _step(self) -> None:
+        self.pre.stream_step_(self.chunk)
+        feat_buf = self.pre.state.feat_buf
+        out = []
+        for name, session, length in zip(self.names, self.sessions,
+                                         self.lengths):
+            feats = feat_buf[-length:][None]
+            if session.stateful:
+                probs, new_carry = session.scores(feats, self.carries[name])
+                for dst, src in zip(_tree_tensors(self.carries[name]),
+                                    _tree_tensors(new_carry)):
+                    dst.copy_(src)
+            else:
+                probs = session.scores(feats)
+            out.append(probs)
+        self.scores.copy_(torch.cat(out))
+
+    def _state_tensors(self) -> list:
+        return list(self.pre.state) + _tree_tensors(
+            tuple(self.carries.values()))
+
+    def capture(self) -> None:
+        """Warm up, capture `_step` into a graph, restore the state."""
+        device = self.pre.device
+        state = self._state_tensors()
+        saved = [t.clone() for t in state]
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            for _ in range(self.WARMUP_STEPS):
+                self._step()
+        torch.cuda.current_stream(device).wait_stream(side)
+        recorded = mel_cuda.captured
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._step()
+        self.mel_launches_per_replay = mel_cuda.captured - recorded
+        for dst, src in zip(state, saved):
+            dst.copy_(src)
+        self.graph = graph
+
+    def run(self, chunk: np.ndarray) -> dict:
+        """One [1280] float32 chunk -> {model: probability}."""
+        hidden = self.interp.hidden_states
+        for name, carry in self.carries.items():
+            if hidden[name] is None:        # after reset(): the zero state
+                for t in _tree_tensors(carry):
+                    t.zero_()
+        if self.use_graph and self.graph is None:
+            self.capture()
+        self.chunk.copy_(torch.from_numpy(chunk))
+        if self.use_graph:
+            self.graph.replay()
+            mel_cuda.count_replayed(self.mel_launches_per_replay)
+        else:
+            self._step()
+        self.pre._frames_seen += 1
+        for name, carry in self.carries.items():
+            hidden[name] = carry
+        return dict(zip(self.names,
+                        self.scores.cpu().numpy().astype(np.float64)))
 
 
 class NanoInterpreter:
     """Main inference engine. Use `NanoInterpreter.load_model()`.
 
     kwargs: `device` (default "cuda"), `encoder_state_dict` (default: the
-    encoder bundled in the first artifact that has one), and the
-    AudioFeatures arguments.
+    encoder bundled in the first artifact that has one),
+    `enable_noise_reduction`, `vad_threshold`, and the AudioFeatures
+    arguments.
     """
 
     def __init__(self, wakeword_models: List[str], **kwargs):
-        self.models: Dict[str, _LocalSession] = {}
-        self.model_feature_length: Dict[str, int] = {}
-        self.raw_scores: Dict[str, float] = {}
-        self.post_processed_scores: Dict[str, float] = {}
-        self.cascade_config: dict = {}
-
+        self._init_empty()
         device = kwargs.get("device", "cuda")
         encoder = kwargs.pop("encoder_state_dict", None)
         for mdl_path in wakeword_models:
@@ -145,14 +272,33 @@ class NanoInterpreter:
                     f"'{mdl_path}': only .nww models are ported to PyTorch; "
                     ".onnx models are still to be ported (ROADMAP.md)")
             header, model, enc = load_nww(mdl_path, device=device)
-            session = _LocalSession(model, header)
-            self.models[model_key] = session
-            self.model_feature_length[model_key] = session.feature_length
-            self.raw_scores[model_key] = 0.0
-            self.post_processed_scores[model_key] = 0.0
+            self._register(model_key, _LocalSession(model, header))
             if encoder is None:
                 encoder = enc
         self._setup_components(encoder_state_dict=encoder, **kwargs)
+        self._fused_step = self._build_fused_step()
+
+    def _init_empty(self) -> None:
+        self.models: Dict[str, object] = {}
+        self.model_feature_length: Dict[str, int] = {}
+        self.is_stateful: Dict[str, bool] = {}
+        self.hidden_states: Dict[str, object] = {}
+        self.class_mapping: Dict[str, Dict[str, str]] = {}
+        self.raw_scores: Dict[str, float] = {}
+        self.post_processed_scores: Dict[str, float] = {}
+        self.cascade_config: dict = {}
+        self._listen_thread: Optional[threading.Thread] = None
+        self._stop_event: Optional[threading.Event] = None
+        self._fused_step: Optional[_FusedStep] = None
+
+    def _register(self, model_key: str, session) -> None:
+        self.models[model_key] = session
+        self.model_feature_length[model_key] = session.feature_length
+        self.is_stateful[model_key] = session.stateful
+        self.hidden_states[model_key] = None
+        self.class_mapping[model_key] = {"0": model_key}
+        self.raw_scores[model_key] = 0.0
+        self.post_processed_scores[model_key] = 0.0
 
     # -- properties ---------------------------------------------------------------
 
@@ -186,10 +332,14 @@ class NanoInterpreter:
 
     @property
     def info(self) -> dict:
-        return {
+        from nanowakeword_tpu_torch.interpreter.remote_verifier import \
+            _RemoteSession
+        verifier_name = self.cascade_config.get("verifier", self.model_name)
+        is_remote = isinstance(self.models.get(verifier_name), _RemoteSession)
+        d = {
             "model_name": self.model_name,
             "is_cascade": self.is_cascade,
-            "is_remote": False,
+            "is_remote": is_remote,
             "gate_name": self.gate_name,
             "gate_threshold": self.cascade_config.get("gate_threshold", None),
             "loaded_models": list(self.models.keys()),
@@ -197,6 +347,9 @@ class NanoInterpreter:
             "gate_score": self.gate_score,
             "raw_scores": dict(self.raw_scores),
         }
+        if is_remote:
+            d["remote_uri"] = self.models[verifier_name].uri
+        return d
 
     def __repr__(self) -> str:
         if self.is_cascade:
@@ -212,6 +365,14 @@ class NanoInterpreter:
         name = model or self.model_name
         return self.post_processed_scores.get(name, 0.0) >= threshold
 
+    def stop(self) -> None:
+        if self._stop_event is not None:
+            self._stop_event.set()
+        if self._listen_thread is not None and self._listen_thread.is_alive():
+            self._listen_thread.join(timeout=2.0)
+        self._listen_thread = None
+        self._stop_event = None
+
     # -- load_model ------------------------------------------------------------------
 
     @classmethod
@@ -221,24 +382,67 @@ class NanoInterpreter:
                    gate_model: Optional[str] = None,
                    gate_threshold: float = 0.3,
                    remote_verifier: Optional[str] = None,
+                   remote_pipeline: str = "verifier_only",
+                   remote_timeout: float = 2.0,
+                   remote_api_key: Optional[str] = None,
+                   remote_token: Optional[str] = None,
+                   remote_ssl_certfile: Optional[str] = None,
+                   remote_ssl_keyfile: Optional[str] = None,
+                   remote_ssl_ca_certs: Optional[str] = None,
                    **kwargs):
+        from nanowakeword_tpu_torch.interpreter.remote_verifier import \
+            _VALID_PIPELINES
+
+        if remote_pipeline not in _VALID_PIPELINES:
+            raise ValueError(f"Invalid remote_pipeline '{remote_pipeline}'. "
+                             f"Choose from: {sorted(_VALID_PIPELINES)}")
+
+        paths: List[str] = []
+        if model is not None:
+            if isinstance(model, str):
+                paths = [model]
+            elif isinstance(model, list):
+                paths = model
+            else:
+                raise TypeError("`model` must be a string, list of strings, "
+                                "or None.")
+            for path in paths:
+                if not os.path.exists(path):
+                    raise FileNotFoundError(f"Model file not found: {path}")
+        if not paths and remote_verifier is None:
+            raise ValueError("load_model needs at least one local model or "
+                             "a remote_verifier")
+
+        remote_cfg: Optional[dict] = None
         if remote_verifier is not None:
-            raise NotImplementedError(
-                "remote verifiers are not ported to PyTorch yet (ROADMAP.md)")
-        if isinstance(model, str):
-            paths = [model]
-        elif isinstance(model, list):
-            paths = model
-        else:
-            raise TypeError("`model` must be a string or a list of strings.")
-        if not paths:
-            raise ValueError("load_model needs at least one local model")
-        for path in paths:
-            if not os.path.exists(path):
-                raise FileNotFoundError(f"Model file not found: {path}")
+            if len(paths) > 1:
+                raise ValueError(
+                    "remote_verifier supports at most one local model path "
+                    "(the gate). The verifier runs on the remote server.")
+            if paths:
+                gate_stem = os.path.splitext(os.path.basename(paths[0]))[0]
+                verifier_stem = (gate_stem[:-5] if gate_stem.endswith("_lite")
+                                 else gate_stem + "_remote")
+            else:
+                gate_stem = None
+                verifier_stem = "remote_model"
+            remote_cfg = {
+                "gate": gate_stem, "verifier": verifier_stem,
+                "gate_threshold": gate_threshold, "uri": remote_verifier,
+                "pipeline": remote_pipeline, "timeout": remote_timeout,
+                "api_key": remote_api_key, "token": remote_token,
+                "ssl_certfile": remote_ssl_certfile,
+                "ssl_keyfile": remote_ssl_keyfile,
+                "ssl_ca_certs": remote_ssl_ca_certs,
+            }
+            logging.info(
+                f"[NanoInterpreter] Remote mode: gate='{gate_stem or 'none'}' "
+                f"(local) -> verifier='{verifier_stem}' "
+                f"(remote @ {remote_verifier}, pipeline='{remote_pipeline}')")
 
         cascade_cfg: dict = {}
-        if (cascade or gate_model is not None) and len(paths) == 1:
+        if (remote_cfg is None and (cascade or gate_model is not None)
+                and len(paths) == 1):
             main_path = paths[0]
             stem = os.path.splitext(os.path.basename(main_path))[0]
             if gate_model is not None:
@@ -275,98 +479,203 @@ class NanoInterpreter:
                 cascade_cfg = {"gate": gate_name, "verifier": stem,
                                "gate_threshold": gate_threshold}
 
-        instance = cls(wakeword_models=paths, **kwargs)
-        instance.cascade_config = cascade_cfg
+        if remote_cfg is not None and not paths:
+            # no local model: raw audio goes to the server, no preprocessor
+            instance = cls.__new__(cls)
+            instance._init_empty()
+            instance._setup_components_no_preprocessor(**kwargs)
+        else:
+            instance = cls(wakeword_models=paths, **kwargs)
+
+        if remote_cfg is not None:
+            instance._inject_remote_session(remote_cfg)
+            if remote_cfg["gate"] is not None:
+                instance.cascade_config = {
+                    "gate": remote_cfg["gate"],
+                    "verifier": remote_cfg["verifier"],
+                    "gate_threshold": remote_cfg["gate_threshold"],
+                }
+        else:
+            instance.cascade_config = cascade_cfg
+        if instance._fused_step is not None and instance._fused_step.use_graph:
+            # capture now, so that the first chunk is already one replay
+            instance._fused_step.capture()
         return instance
+
+    def _inject_remote_session(self, remote_cfg: dict) -> None:
+        from nanowakeword_tpu_torch.interpreter.remote_verifier import \
+            _RemoteSession
+        verifier_name = remote_cfg["verifier"]
+        session = _RemoteSession(
+            uri=remote_cfg["uri"], model_name=verifier_name,
+            pipeline=remote_cfg["pipeline"], timeout=remote_cfg["timeout"],
+            api_key=remote_cfg.get("api_key"), token=remote_cfg.get("token"),
+            ssl_certfile=remote_cfg.get("ssl_certfile"),
+            ssl_keyfile=remote_cfg.get("ssl_keyfile"),
+            ssl_ca_certs=remote_cfg.get("ssl_ca_certs"))
+        self._register(verifier_name, session)
+        # a remote session cannot join the one-call device step
+        self._fused_step = None
+        logging.info(f"[NanoInterpreter] Remote verifier '{verifier_name}' "
+                     f"registered (pipeline='{remote_cfg['pipeline']}').")
 
     # -- component setup ---------------------------------------------------------
 
-    def _setup_components(self, **kwargs):
+    def _setup_gates(self, kwargs: dict) -> None:
+        """The prediction buffers, noise reduction and the VAD gate."""
         self.prediction_buffer = defaultdict(partial(deque, maxlen=30))
-        if kwargs.pop("enable_noise_reduction", False):
-            raise NotImplementedError(
-                "noise reduction is not ported to PyTorch yet (ROADMAP.md)")
+        use_noise_reduction = kwargs.pop("enable_noise_reduction", False)
+        if use_noise_reduction and not NOISEREDUCE_AVAILABLE:
+            logging.warning("`enable_noise_reduction` is True, but "
+                            "`noisereduce` is not installed. Disabling.")
+        self.noise_reducer_enabled = bool(use_noise_reduction
+                                          and NOISEREDUCE_AVAILABLE)
         self.vad_threshold = kwargs.pop("vad_threshold", 0)
         if self.vad_threshold > 0:
-            raise NotImplementedError(
-                "the VAD gate is not ported to PyTorch yet (ROADMAP.md)")
+            from nanowakeword_tpu_torch.interpreter.vad import VAD
+            self.vad = VAD()
+
+    def _setup_components(self, **kwargs):
+        self._setup_gates(kwargs)
         if kwargs.pop("onnx_frontend", None) is not None:
             raise NotImplementedError(
                 "the ONNX frontend is not ported to PyTorch yet (ROADMAP.md)")
         self.preprocessor = AudioFeatures(**kwargs)
 
-    # -- streaming step -------------------------------------------------------------
+    def _setup_components_no_preprocessor(self, **kwargs):
+        self._setup_gates(kwargs)
+        self.preprocessor = None
 
-    @torch.no_grad()
-    def _step(self, chunk: np.ndarray) -> dict:
-        """One 80 ms chunk: the feature stream step, then every model on the
-        newest frames of the feature ring. -> {model: probability}."""
-        pre = self.preprocessor
-        pre.state = pre._stream_step_impl(
-            pre.state, torch.from_numpy(chunk).to(pre.device))
-        pre._frames_seen += 1
-        feat_buf = pre.state.feat_buf
-        scores = torch.cat([
-            session.scores(feat_buf[-self.model_feature_length[name]:][None])
-            for name, session in self.models.items()])
-        return dict(zip(self.models, scores.cpu().numpy().astype(np.float64)))
+    # -- the one-call streaming step ------------------------------------------------
+
+    def _build_fused_step(self) -> Optional[_FusedStep]:
+        """The one-call step over all models, or None (general path) when
+        there is no preprocessor, no model, or a session that is not local."""
+        if self.preprocessor is None or not self.models:
+            return None
+        if any(not isinstance(s, _LocalSession)
+               for s in self.models.values()):
+            return None
+        return _FusedStep(self)
 
     # -- predict ------------------------------------------------------------------------
+
+    def _result(self, scores: dict) -> DetectionResult:
+        return DetectionResult(scores=dict(scores),
+                               model_name=self.model_name,
+                               gate_name=self.gate_name)
+
+    def _gate_is_low(self, model_key: str, chunk_scores: dict) -> bool:
+        """Whether `model_key` is the cascade's verifier and its gate, which
+        scored before it, stayed under the threshold."""
+        cfg = self.cascade_config
+        return bool(cfg) and model_key == cfg["verifier"] and \
+            chunk_scores.get(cfg["gate"], 0.0) < cfg["gate_threshold"]
+
+    def _record_raw(self, model_key: str, score: float) -> float:
+        """Keep the raw score; the first 5 predictions are zeroed."""
+        self.raw_scores[model_key] = score
+        if len(self.prediction_buffer.get(model_key, [])) < 5:
+            return 0.0
+        return score
+
+    def _finish(self, chunk_scores: dict, x: np.ndarray, patience,
+                threshold, debounce_time, n_prepared: int) -> DetectionResult:
+        """The VAD gate over frames [-7:-4], the patience / debounce
+        filters, and the score buffers."""
+        gated_scores = chunk_scores.copy()
+        if self.vad_threshold > 0:
+            self.vad(x)
+            vad_frames = list(self.vad.prediction_buffer)[-7:-4]
+            vad_max = np.max(vad_frames) if len(vad_frames) > 0 else 0
+            if vad_max < self.vad_threshold:
+                for model_key in gated_scores:
+                    gated_scores[model_key] = 0.0
+        self._apply_post_processing(gated_scores, patience, threshold,
+                                    debounce_time, n_prepared)
+        for model_key, score in gated_scores.items():
+            self.prediction_buffer[model_key].append(score)
+            self.post_processed_scores[model_key] = score
+        return self._result(gated_scores)
+
+    def _predict_fused(self, x: np.ndarray, patience, threshold,
+                       debounce_time) -> DetectionResult:
+        """predict() over the one-call step; same semantics as the general
+        path, but every model scores on every chunk."""
+        pre = self.preprocessor
+        chunks = pre._chunker.feed(np.asarray(x, np.float32).reshape(-1))
+        pre.accumulated_samples = pre._chunker.pending
+        if chunks.shape[0] == 0:
+            return self._result(self.post_processed_scores)
+
+        raw = {}
+        for chunk in chunks:
+            raw = self._fused_step.run(chunk)
+
+        frames_avail = min(pre._frames_seen, pre.state.feat_buf.shape[0])
+        chunk_scores = {}
+        for model_key, score in raw.items():
+            # warm-up guard: the model's window must be filled with frames
+            if frames_avail < self.model_feature_length[model_key] \
+                    or self._gate_is_low(model_key, chunk_scores):
+                chunk_scores[model_key] = 0.0
+                continue
+            chunk_scores[model_key] = self._record_raw(model_key,
+                                                       float(score))
+        return self._finish(chunk_scores, x, patience, threshold,
+                            debounce_time, chunks.shape[0] * CHUNK)
 
     def predict(self, x: np.ndarray, patience: dict = {},
                 threshold: dict = {},
                 debounce_time: float = 0.0) -> DetectionResult:
         if not isinstance(x, np.ndarray):
             raise ValueError("Input audio `x` must be a Numpy array.")
-        pre = self.preprocessor
-        chunks = pre._chunker.feed(np.asarray(x, np.float32).reshape(-1))
-        if chunks.shape[0] == 0:
-            pre.accumulated_samples = pre._chunker.pending
-            return DetectionResult(scores=dict(self.post_processed_scores),
-                                   model_name=self.model_name,
-                                   gate_name=self.gate_name)
+        if self.noise_reducer_enabled:
+            x = self._reduce_noise(x)
 
-        raw = {}
-        for chunk in chunks:
-            raw = self._step(chunk)
-        n_prepared = chunks.shape[0] * CHUNK
-        pre.accumulated_samples = pre._chunker.pending
+        # full-remote: no local preprocessor, raw audio to the server
+        if self.preprocessor is None:
+            chunk_scores = {}
+            for model_key, session in self.models.items():
+                chunk_scores[model_key] = self._record_raw(
+                    model_key, session.run_audio(x))
+            for model_key, score in chunk_scores.items():
+                self.prediction_buffer[model_key].append(score)
+                self.post_processed_scores[model_key] = score
+            return self._result(chunk_scores)
 
-        frames_avail = min(pre._frames_seen, pre.state.feat_buf.shape[0])
+        if self._fused_step is not None:
+            return self._predict_fused(x, patience, threshold, debounce_time)
+
+        # the general path: one session.run per model
+        n_prepared_samples = self.preprocessor(x)
+        if n_prepared_samples < CHUNK:
+            return self._result(self.post_processed_scores)
+
         chunk_scores = {}
-        for model_key, score in raw.items():
-            # warm-up guard: the model's window must be filled with frames
-            if frames_avail < self.model_feature_length[model_key]:
+        for model_key, session in self.models.items():
+            required_frames = self.model_feature_length[model_key]
+            if self.preprocessor.feature_buffer.shape[0] < required_frames \
+                    or self._gate_is_low(model_key, chunk_scores):
                 chunk_scores[model_key] = 0.0
                 continue
-            # the cascade's verifier scores only when the gate passed
-            if self.cascade_config \
-                    and model_key == self.cascade_config["verifier"]:
-                gate_score = chunk_scores.get(
-                    self.cascade_config["gate"], 0.0)
-                if gate_score < self.cascade_config["gate_threshold"]:
-                    chunk_scores[model_key] = 0.0
-                    continue
-            score = float(score)
-            self.raw_scores[model_key] = score
-            # the first 5 predictions are zeroed
-            if len(self.prediction_buffer.get(model_key, [])) < 5:
-                score = 0.0
-            chunk_scores[model_key] = score
-
-        gated_scores = chunk_scores.copy()
-        self._apply_post_processing(gated_scores, patience, threshold,
-                                    debounce_time, n_prepared)
-        for model_key, score in gated_scores.items():
-            self.prediction_buffer[model_key].append(score)
-            self.post_processed_scores[model_key] = score
-        return DetectionResult(scores=dict(gated_scores),
-                               model_name=self.model_name,
-                               gate_name=self.gate_name)
+            features = self.preprocessor.get_features(required_frames)
+            if self.is_stateful.get(model_key, False):
+                score, new_carry = session.run(
+                    features, carry=self.hidden_states.get(model_key))
+                self.hidden_states[model_key] = new_carry
+            else:
+                score, _ = session.run(features)
+            chunk_scores[model_key] = self._record_raw(model_key, score)
+        return self._finish(chunk_scores, x, patience, threshold,
+                            debounce_time, n_prepared_samples)
 
     def reset(self):
         self.prediction_buffer.clear()
-        self.preprocessor.reset()
+        if self.preprocessor is not None:
+            self.preprocessor.reset()
+        for model_key in self.hidden_states:
+            self.hidden_states[model_key] = None
         for model_key in self.raw_scores:
             self.raw_scores[model_key] = 0.0
             self.post_processed_scores[model_key] = 0.0
@@ -389,11 +698,96 @@ class NanoInterpreter:
         return [self.predict(data[i:i + chunk_size], **kwargs)
                 for i in range(0, len(data), chunk_size)]
 
-    def listen(self, *args, **kwargs) -> None:
-        raise NotImplementedError(
-            "listen() is not ported to PyTorch yet (ROADMAP.md)")
+    def listen(self,
+               on_detection: Optional[Callable[[str, float], None]] = None,
+               threshold: float = 0.5,
+               cooldown: float = 1.0,
+               chunk_size: int = 1280,
+               on_score: Optional[Callable[[float, float], None]] = None,
+               on_audio: Optional[Callable[[np.ndarray], None]] = None,
+               blocking: bool = True) -> None:
+        """Microphone loop. Requires pyaudio."""
+        try:
+            import pyaudio
+        except ImportError:
+            raise ImportError("PyAudio is required for listen(). Install it "
+                              "with: pip install pyaudio")
+
+        if on_detection is None:
+            def on_detection(name: str, score: float) -> None:
+                print(f"\nDetected '{name}'!  (score: {score:.5f})")
+
+        def _loop():
+            # A capture thread pushes int16 frames into the ring (which drops
+            # the OLDEST samples on overflow, so capture never blocks); this
+            # thread pops whole chunks and scores them. A slow scoring step
+            # therefore skips audio instead of stalling the microphone.
+            from nanowakeword_tpu_torch.runtime import AudioRing
+            ring = AudioRing(capacity=16000 * 10)
+            pa = pyaudio.PyAudio()
+            stream = pa.open(format=pyaudio.paInt16, channels=1, rate=16000,
+                             input=True, frames_per_buffer=chunk_size)
+            last_detection = 0.0
+            stop_event = self._stop_event
+            capture_stop = threading.Event()
+
+            def _capture():
+                while not capture_stop.is_set():
+                    try:
+                        ring.push(np.frombuffer(
+                            stream.read(chunk_size,
+                                        exception_on_overflow=False),
+                            dtype=np.int16))
+                    except OSError:
+                        return
+
+            capture_thread = threading.Thread(target=_capture, daemon=True)
+            capture_thread.start()
+            try:
+                while not (stop_event and stop_event.is_set()):
+                    if ring.size < chunk_size:
+                        time.sleep(chunk_size / 16000 / 4)
+                        continue
+                    audio = ring.pop(chunk_size)
+                    if on_audio is not None:
+                        on_audio(audio)
+                    self.predict(audio)
+                    v_score, g_score = self.verifier_score, self.gate_score
+                    if on_score is not None:
+                        on_score(v_score, g_score)
+                    now = time.monotonic()
+                    if (v_score > threshold
+                            and (now - last_detection) > cooldown):
+                        on_detection(self.model_name, v_score)
+                        last_detection = now
+                        self.reset()
+            except KeyboardInterrupt:
+                pass
+            finally:
+                capture_stop.set()
+                stream.stop_stream()
+                stream.close()
+                pa.terminate()
+                capture_thread.join(timeout=1.0)
+
+        if blocking:
+            _loop()
+        else:
+            self._stop_event = threading.Event()
+            self._listen_thread = threading.Thread(target=_loop, daemon=True)
+            self._listen_thread.start()
 
     # -- helpers ----------------------------------------------------------------
+
+    def _reduce_noise(self, x: np.ndarray) -> np.ndarray:
+        try:
+            audio_float = x.astype(np.float32) / 32767.0
+            reduced = nr.reduce_noise(y=audio_float, sr=16000, stationary=True)
+            return (reduced * 32767.0).astype(np.int16)
+        except Exception as e:  # noqa: BLE001
+            logging.warning(f"Noise reduction failed: {e}. Returning original "
+                            "audio.")
+            return x
 
     def _apply_post_processing(self, predictions, patience, threshold,
                                debounce_time, n_prepared_samples):

@@ -1,6 +1,7 @@
 """The classifier backbones of the shipped artifacts, as torch modules.
 
-The counterparts of `get_activation`, `BiRNN`, `DNNModel` and `CRNNModel` in
+The counterparts of `get_activation`, `BiRNN`, `UniRNN`, `DNNModel`,
+`CRNNModel` and `StreamingGRUModel` in
 `nanowakeword_tpu/models/architectures.py`, on [B, T, 96] feature frames,
 emitting an `embedding_dim` vector for the shared head (models/model.py).
 The rest of the zoo is still to be ported (ROADMAP.md).
@@ -102,6 +103,128 @@ class BiRNN(nn.Module):
             if i < n_layers - 1:
                 x = self.dropout(x)
         return x
+
+
+class UniGRULayer(nn.Module):
+    """One causal GRU layer with flax `nn.GRUCell`'s formulas: the input side
+    carries the r, z, n biases, the recurrent side has a bias on n only
+    (`bias_hn`), and n = tanh(W_in x + b_in + r * (W_hn h + b_hn)). The
+    three gates' kernels are stacked in r, z, n order."""
+
+    def __init__(self, in_features: int, hidden: int):
+        super().__init__()
+        self.hidden = hidden
+        self.input_proj = nn.Linear(in_features, 3 * hidden)
+        self.recurrent = nn.Linear(hidden, 3 * hidden, bias=False)
+        self.bias_hn = nn.Parameter(torch.zeros(hidden))
+
+    def initial_carry(self, x: torch.Tensor) -> torch.Tensor:
+        return x.new_zeros(x.shape[0], self.hidden)
+
+    def forward(self, x: torch.Tensor, carry: torch.Tensor):
+        """[B, T, F], [B, H] -> ([B, T, H], new carry [B, H])."""
+        xg = self.input_proj(x)                       # [B, T, 3H]
+        h = carry
+        outs = []
+        for t in range(xg.shape[1]):
+            xr, xz, xn = xg[:, t].chunk(3, dim=-1)
+            hr, hz, hn = self.recurrent(h).chunk(3, dim=-1)
+            r = torch.sigmoid(xr + hr)
+            z = torch.sigmoid(xz + hz)
+            n = torch.tanh(xn + r * (hn + self.bias_hn))
+            h = (1.0 - z) * n + z * h
+            outs.append(h)
+        return torch.stack(outs, dim=1), h
+
+
+class UniLSTMLayer(nn.Module):
+    """One causal LSTM layer with flax `nn.OptimizedLSTMCell`'s layout: no
+    bias on the input side, one on the recurrent side, gates stacked in
+    i, f, g, o order. The carry is the pair (c, h)."""
+
+    def __init__(self, in_features: int, hidden: int):
+        super().__init__()
+        self.hidden = hidden
+        self.input_proj = nn.Linear(in_features, 4 * hidden, bias=False)
+        self.recurrent = nn.Linear(hidden, 4 * hidden)
+
+    def initial_carry(self, x: torch.Tensor):
+        zeros = x.new_zeros(x.shape[0], self.hidden)
+        return zeros, zeros.clone()
+
+    def forward(self, x: torch.Tensor, carry):
+        """[B, T, F], (c, h) -> ([B, T, H], new (c, h))."""
+        xg = self.input_proj(x)                       # [B, T, 4H]
+        c, h = carry
+        outs = []
+        for t in range(xg.shape[1]):
+            xi, xf, xgate, xo = xg[:, t].chunk(4, dim=-1)
+            hi, hf, hgate, ho = self.recurrent(h).chunk(4, dim=-1)
+            i = torch.sigmoid(hi + xi)
+            f = torch.sigmoid(hf + xf)
+            g = torch.tanh(hgate + xgate)
+            o = torch.sigmoid(ho + xo)
+            c = f * c + i * g
+            h = o * torch.tanh(c)
+            outs.append(h)
+        return torch.stack(outs, dim=1), (c, h)
+
+
+class UniRNN(nn.Module):
+    """Unidirectional (causal, streamable) LSTM/GRU with explicit carry I/O.
+
+    `forward(x, carry)` resumes from `carry`, a tuple with one entry per
+    layer (a [B, H] tensor for a GRU, a (c, h) pair for an LSTM); None is
+    the zero state. It returns the outputs and the new carry, whose tensors
+    stay on the module's device between chunks.
+    """
+
+    def __init__(self, in_features: int, hidden: int, n_layers: int = 1,
+                 cell: str = "lstm", dropout: float = 0.0):
+        super().__init__()
+        layer = UniGRULayer if cell == "gru" else UniLSTMLayer
+        self.layers = nn.ModuleList(
+            layer(in_features if i == 0 else hidden, hidden)
+            for i in range(n_layers))
+        self.dropout = nn.Dropout(dropout if n_layers > 1 else 0.0)
+
+    def initial_carry(self, x: torch.Tensor) -> tuple:
+        """The zero carry for a batch like `x` ([B, T, F])."""
+        return tuple(layer.initial_carry(x) for layer in self.layers)
+
+    def forward(self, x: torch.Tensor, carry=None):
+        if carry is None:
+            carry = self.initial_carry(x)
+        new_carries = []
+        for i, layer in enumerate(self.layers):
+            x, c = layer(x, carry[i])
+            new_carries.append(c)
+            if i < len(self.layers) - 1:
+                x = self.dropout(x)
+        return x, tuple(new_carries)
+
+
+class StreamingGRUModel(nn.Module):
+    """Causal GRU with explicit carry, for stateful streaming inference
+    (model_type "streaming_gru"): it carries its hidden state across chunks
+    and scores each new frame in O(1), where the bidirectional models
+    re-score a whole window per chunk."""
+
+    def __init__(self, input_shape, hidden_dim: int, n_layers: int,
+                 embedding_dim: int, dropout_prob: float, cell: str = "gru"):
+        super().__init__()
+        dr = dropout_prob if n_layers > 1 else 0.0
+        self.rnn = UniRNN(int(input_shape[-1]), hidden_dim, n_layers, cell,
+                          dr)
+        self.dropout = nn.Dropout(dropout_prob)
+        self.dense = nn.Linear(hidden_dim, embedding_dim)
+
+    def initial_carry(self, x: torch.Tensor) -> tuple:
+        return self.rnn.initial_carry(x)
+
+    def forward(self, x: torch.Tensor, carry=None):
+        out, new_carry = self.rnn(x, carry)
+        return self.dense(self.dropout(out[:, -1, :])), new_carry
 
 
 class DNNModel(nn.Module):

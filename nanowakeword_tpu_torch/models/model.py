@@ -1,8 +1,9 @@
 """Model wrapper: backbone dispatch + the shared classifier head.
 
 The counterpart of `build_backbone`, `WakeWordModule` and `Model` in
-`nanowakeword_tpu/models/model.py`, for the backbones ported so far ("dnn"
-and "crnn"). The head is Dense(E -> E/2) -> act -> Dropout -> Dense(-> 1).
+`nanowakeword_tpu/models/model.py`, for the backbones ported so far ("dnn",
+"crnn" and the stateful "streaming_gru"). The head is Dense(E -> E/2) ->
+act -> Dropout -> Dense(-> 1).
 
 A fresh `Model` draws its weights with flax's initializers (lecun-normal
 kernels, zero biases, orthogonal GRU/LSTM recurrent kernels, unit norm
@@ -26,7 +27,7 @@ from nanowakeword_tpu_torch.convert import (flax_variables_from_state_dict,
 from nanowakeword_tpu_torch.models import architectures as A
 from nanowakeword_tpu_torch.models.fast_rnn import FastGRU, FastLSTM
 
-PORTED_MODEL_TYPES = ("dnn", "crnn")
+PORTED_MODEL_TYPES = ("dnn", "crnn", "streaming_gru")
 # flax's truncated normal keeps [-2, 2] of a unit normal, whose std is this
 _TRUNC_STD = 0.87962566103423978
 
@@ -47,6 +48,9 @@ def build_backbone(model_type: str, config, input_shape, layer_dim: int,
             rnn_hidden_size=layer_dim, n_rnn_layers=n_blocks,
             embedding_dim=embedding_dim, dropout_prob=dropout_prob,
             activation=activation), False
+    if mt == "streaming_gru":
+        return A.StreamingGRUModel(input_shape, layer_dim, n_blocks,
+                                   embedding_dim, dropout_prob), True
     raise NotImplementedError(
         f"model_type '{model_type}' is not ported to PyTorch yet (ported: "
         f"{', '.join(PORTED_MODEL_TYPES)}); see ROADMAP.md for the rest of "
@@ -54,21 +58,28 @@ def build_backbone(model_type: str, config, input_shape, layer_dim: int,
 
 
 class WakeWordModule(nn.Module):
-    """Backbone + the shared classifier head."""
+    """Backbone + the shared classifier head. A stateful module's forward
+    takes and returns the backbone's carry: `(x, carry) -> (logits, carry)`."""
 
     def __init__(self, backbone: nn.Module, embedding_dim: int,
                  n_classes: int = 1, dropout_prob: float = 0.5,
-                 activation=torch.relu):
+                 activation=torch.relu, stateful: bool = False):
         super().__init__()
         self.backbone = backbone
+        self.stateful = stateful
         self.head_hidden = nn.Linear(embedding_dim, embedding_dim // 2)
         self.head_dropout = nn.Dropout(dropout_prob)
         self.head_out = nn.Linear(embedding_dim // 2, n_classes)
         self.activation = activation
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.activation(self.head_hidden(self.backbone(x)))
-        return self.head_out(self.head_dropout(h))
+    def forward(self, x: torch.Tensor, carry=None):
+        if self.stateful:
+            emb, new_carry = self.backbone(x, carry)
+        else:
+            emb = self.backbone(x)
+        h = self.activation(self.head_hidden(emb))
+        logits = self.head_out(self.head_dropout(h))
+        return (logits, new_carry) if self.stateful else logits
 
 
 @torch.no_grad()
@@ -93,13 +104,23 @@ def flax_init_(module: nn.Module, g: torch.Generator) -> None:
     """Re-draw every weight of `module` with flax's default initializers."""
     recurrent = {id(m.recurrent) for m in module.modules()
                  if isinstance(m, (FastGRU, FastLSTM))}
+    # flax's GRUCell / OptimizedLSTMCell draw one orthogonal [H, H] kernel
+    # per gate
+    per_gate = {id(m.recurrent) for m in module.modules()
+                if isinstance(m, (A.UniGRULayer, A.UniLSTMLayer))}
     for m in module.modules():
-        if isinstance(m, nn.Linear) and id(m) in recurrent:
-            _orthogonal_(m.weight, g)
-            m.bias.zero_()
-        elif isinstance(m, nn.Linear):
-            _lecun_normal_(m.weight, m.in_features, g)
-            m.bias.zero_()
+        if isinstance(m, nn.Linear):
+            if id(m) in recurrent:
+                _orthogonal_(m.weight, g)
+            elif id(m) in per_gate:
+                for block in m.weight.split(m.in_features, dim=0):
+                    _orthogonal_(block, g)
+            else:
+                _lecun_normal_(m.weight, m.in_features, g)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, A.UniGRULayer):
+            m.bias_hn.zero_()
         elif isinstance(m, nn.Conv2d):
             fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
             _lecun_normal_(m.weight, fan_in, g)
@@ -138,7 +159,8 @@ class Model:
         self.stateful = stateful
         self.module = WakeWordModule(
             backbone, self.embedding_dim, n_classes=n_classes,
-            dropout_prob=dropout_prob, activation=activation)
+            dropout_prob=dropout_prob, activation=activation,
+            stateful=stateful)
         flax_init_(self.module, torch.Generator().manual_seed(seed))
         self.module.to(self.device)
         self.eval()
@@ -179,8 +201,10 @@ class Model:
         return out
 
     @torch.no_grad()
-    def __call__(self, x) -> torch.Tensor:
-        """Eval-mode logits for [B, T, F] features -> [B, n_classes]."""
+    def __call__(self, x):
+        """Eval-mode logits for [B, T, F] features -> [B, n_classes]; a
+        stateful model starts from the zero carry and returns
+        (logits, carry)."""
         return self.module(torch.as_tensor(x, dtype=torch.float32,
                                            device=self.device))
 

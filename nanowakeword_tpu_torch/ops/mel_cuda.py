@@ -30,13 +30,23 @@ _OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_TAPS = 16   # filterbank taps per mel the kernel keeps (MAXTAP in the .cu)
 
 # Kernel launches since import (or the last reset): a run shows with it that
-# the main path went through the kernel.
+# the main path went through the kernel. A call made while its stream is
+# being captured into a CUDA graph runs no kernel: it is recorded, and
+# counted in `captured`; whoever replays that graph counts the launches of
+# each replay with `count_replayed`.
 launches = 0
+captured = 0
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
+
+
+def count_replayed(n: int) -> None:
+    """Count `n` kernel launches made by replaying a captured graph."""
+    global launches
+    launches += n
 
 
 def mel_frontend_plain(x: torch.Tensor,
@@ -118,7 +128,7 @@ def mel_frontend_cuda(x: torch.Tensor,
                       out_dtype=torch.float32) -> torch.Tensor:
     """[B, n] or [n] int16/f32/bf16 audio on a CUDA device ->
     [B, ceil(n/160), 32] (or [ceil(n/160), 32]) log-mel, by the kernel."""
-    global launches
+    global launches, captured
     if x.device.type != "cuda":
         raise ValueError(f"mel_frontend_cuda needs a CUDA tensor, got "
                          f"{x.device}")
@@ -149,7 +159,10 @@ def mel_frontend_cuda(x: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"mel_frontend kernel launch failed: CUDA error "
                            f"{err}")
-    launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        captured += 1
+    else:
+        launches += 1
     return out[0] if squeeze else out
 
 

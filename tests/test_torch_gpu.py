@@ -1,6 +1,8 @@
 """The port on a CUDA device: the mel and mix kernels against their plain
-versions, the serving path on the card against the same port on the CPU,
-and the augmentation chain launching the mix kernel.
+versions, the serving path on the card against the same port on the CPU
+(batch, the streaming cascade through the replayed one-call step, a
+stateful model, the server's scoring path), and the augmentation chain
+launching the mix kernel.
 
 Every test here is `gpu`-marked and skips without a CUDA device. On a
 machine with one: `python -m pytest -m gpu tests/test_torch_gpu.py -q`.
@@ -145,6 +147,114 @@ def test_streaming_cascade_card_matches_cpu(cuda):
     np.testing.assert_allclose(gate, gate_c, atol=SCORE_TOL)
     np.testing.assert_allclose(verifier, verifier_c, atol=SCORE_TOL)
     assert (verifier[15:] > 0).all()
+
+
+def test_replayed_step_equals_eager_step(cuda):
+    """load_model captures the one-call step; its replays equal the same
+    step run eagerly bit for bit, launch the mel kernel once per chunk, and
+    start from the reset state (the capture's warm-up left no trace)."""
+    clip = np.clip(np.random.default_rng(6).normal(0, 3000, 16000 * 2),
+                   -32768, 32767).astype(np.int16)
+    interp = NanoInterpreter.load_model(CRNN, cascade=True,
+                                        gate_threshold=0.0, device=cuda)
+    step = interp._fused_step
+    assert step.graph is not None and step.mel_launches_per_replay == 1
+    pre = interp.preprocessor
+    assert (pre.state.mel_buf == 1).all() and not pre.state.feat_buf.any()
+    traces = []
+    for use_graph in (True, False, True):
+        step.use_graph = use_graph
+        interp.reset()
+        before = mel_cuda.launches
+        out = interp.predict_clip(clip)
+        assert mel_cuda.launches == before + 25
+        traces.append(np.array([[r.gate_score, r.score] for r in out]))
+    np.testing.assert_array_equal(traces[0], traces[1])
+    np.testing.assert_array_equal(traces[0], traces[2])
+    assert (traces[0][15:] > 0).all()
+
+
+def test_stateful_model_card_matches_cpu(cuda, tmp_path):
+    """A streaming_gru model from seed 0 through save_nww and load_model:
+    scores and carry on the card (replayed step) against the CPU, and
+    reset() brings back the zero state."""
+    from nanowakeword_tpu_torch.export.artifact import save_nww
+    from nanowakeword_tpu_torch.models.model import Model
+    model = Model(config={}, model_name="sgru", model_type="streaming_gru",
+                  layer_dim=32, seed=0, device="cpu")
+    path = save_nww(str(tmp_path / "sgru.nww"), model=model, config={},
+                    model_name="sgru")
+    clip = np.clip(np.random.default_rng(7).normal(0, 3000, 16000 * 2),
+                   -32768, 32767).astype(np.int16)
+    runs = {}
+    for device in (cuda, torch.device("cpu")):
+        interp = NanoInterpreter.load_model(path, device=device)
+        scores = np.array([r.score for r in interp.predict_clip(clip)])
+        carry = interp.hidden_states["sgru"][0]
+        assert carry.device.type == device.type
+        runs[device.type] = (scores, carry.cpu().numpy())
+        interp.reset()
+        assert interp.hidden_states["sgru"] is None
+        again = np.array([r.score for r in interp.predict_clip(clip)])
+        np.testing.assert_array_equal(again, scores)
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0],
+                               atol=SCORE_TOL)
+    np.testing.assert_allclose(runs["cuda"][1], runs["cpu"][1],
+                               atol=SCORE_TOL)
+    assert (runs["cuda"][0][15:] > 0).all()
+
+
+def test_server_batched_equals_alone_on_the_card(rng, cuda):
+    """8 concurrent full connections and 32 concurrent feature requests
+    through the message coroutine: each reply equals the same request
+    scored alone (1e-5, the libraries may choose by shape) and the CPU
+    server's (1e-3), in fewer device calls than requests."""
+    import asyncio
+    import json
+
+    from nanowakeword_tpu_torch.interpreter import remote_verifier as rv
+    audio = _audio(rng, (8, 1280 * 20))
+    feats = rng.normal(0, 1, (32, 1, 16, 96)).astype(np.float32)
+
+    async def client(server, i):
+        state, out = server.connection(), []
+        for c in range(20):
+            message = rv.encode_audio(audio[i, c * 1280:(c + 1) * 1280])
+            out.append(json.loads(await server.reply(message,
+                                                     state))["score"])
+            await asyncio.sleep(0)
+        return out
+
+    async def load(server, concurrent):
+        server.start()
+        if concurrent:
+            streamed = await asyncio.gather(*[client(server, i)
+                                              for i in range(8)])
+        else:
+            streamed = [await client(server, i) for i in range(8)]
+        burst = await asyncio.gather(*[
+            server.reply(rv.encode_features(f), None) for f in feats])
+        return np.array(streamed), np.array(
+            [json.loads(r)["score"] for r in burst])
+
+    server = rv._ScoringServer(CRNN, "full", device=cuda)
+    calls = []
+    run_batch = server.session.run_batch
+    server.session.run_batch = lambda f: (calls.append(len(f)),
+                                          run_batch(f))[1]
+    before = mel_cuda.launches
+    streamed, burst = asyncio.run(load(server, True))
+    assert mel_cuda.launches == before + 8 * 20
+    assert len(calls) < 8 * 5 + 32
+    assert (streamed[:, 15:] > 0).all() and (burst > 0).all()
+    alone = rv._ScoringServer(CRNN, "full", batching=False, device=cuda)
+    streamed_1, burst_1 = asyncio.run(load(alone, False))
+    np.testing.assert_allclose(streamed, streamed_1, atol=1e-5)
+    np.testing.assert_allclose(burst, burst_1, atol=1e-5)
+    cpu = rv._ScoringServer(CRNN, "full", device="cpu")
+    streamed_c, burst_c = asyncio.run(load(cpu, True))
+    np.testing.assert_allclose(streamed, streamed_c, atol=SCORE_TOL)
+    np.testing.assert_allclose(burst, burst_c, atol=SCORE_TOL)
 
 
 def _mix_inputs(rng, cuda, b, n, dtype):

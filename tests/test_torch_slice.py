@@ -164,11 +164,27 @@ def test_unsupported_device_raises():
         mel_cuda.mel_frontend_cuda(torch.zeros(1600))
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"vad_threshold": 0.5},
-    {"enable_noise_reduction": True},
-    {"remote_verifier": "ws://localhost:1"},
-])
-def test_unported_options_raise(kwargs):
+def _load_onnx_model(tmp_path):
+    path = tmp_path / "m.onnx"
+    path.write_bytes(b"")
+    NanoInterpreter.load_model(str(path), device="cpu")
+
+
+def _load_onnx_frontend(tmp_path):
+    NanoInterpreter.load_model(CRNN, device="cpu",
+                               onnx_frontend=str(tmp_path / "m"))
+
+
+def _serve_onnx_model(tmp_path):
+    from nanowakeword_tpu_torch.interpreter.remote_verifier import serve
+    serve(str(tmp_path / "m.onnx"), device="cpu")
+
+
+@pytest.mark.parametrize("call", [_load_onnx_model, _load_onnx_frontend,
+                                  _serve_onnx_model])
+def test_unported_options_raise(call, tmp_path):
+    """What the interpreter and the server still do not take: `.onnx`
+    models and the ONNX frontend. (The VAD gate, noise reduction and remote
+    verifiers are ported: tests/test_torch_interpreter.py.)"""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        NanoInterpreter.load_model(CRNN, device="cpu", **kwargs)
+        call(tmp_path)
