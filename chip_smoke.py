@@ -17,10 +17,16 @@ side: a stateful `streaming_gru` model streamed with its carry, the one-call
 streaming step (a replayed CUDA graph) against the same step run eagerly,
 and the remote-verifier server's scoring path with dynamic batching under
 64 streaming connections and 256 concurrent feature requests (and over a
-loopback WebSocket where `websockets` is installed). It times both kernels
-against their plain versions, batch scoring, streaming latency (eager and
-replayed), the server's requests per second, the transform stage and
-training steps.
+loopback WebSocket where `websockets` is installed). Then the rest of the
+training side: every other family of the model zoo at its default width
+through `save_nww` and the interpreter, the host training loop (`-T` without
+`device_cache`) for the shipped CRNN and a conformer with a checkpoint and a
+resumed run held against the straight run, bf16 training, and distillation
+of the lite gate from the shipped artifact, which the cascade then serves.
+It times both kernels against their plain versions, batch scoring, streaming
+latency (eager and replayed), the server's requests per second, the
+transform stage, training steps of both loops in float32 and bf16, each
+family's forward and distillation steps.
 
 Phases print progress lines. Every check raises on failure, so any failed
 phase exits non-zero. The line before the last is a JSON object with the
@@ -54,6 +60,7 @@ MIX_ULPS = 2.0 ** -22   # mix kernel vs plain, of max(|plain|, 1)
 CARRY_TOL = 1e-5    # a carry threaded over 50 one-frame calls vs one call
 BATCH_TOL = 1e-5    # a request scored in a batch vs alone (the libraries
                     # may choose by shape)
+RESUME_TOL = 1e-5   # a resumed run vs the straight run, if not bit for bit
 STEP_RTOL = 1e-4    # one training step, card vs CPU: loss and grad norm
 WEIGHT_TOL = 1e-5   # ... and the updated weights and BatchNorm statistics
 # the shipped configuration (campaign/config_hey_nano.yaml)
@@ -324,7 +331,7 @@ def main() -> int:
     # -- 7. the mix kernel against its plain version, on the card ---------------
     mix = mix_phase(rng, cuda, card)
 
-    # -- 8-10. the training path ---------------------------------------------------
+    # -- 8-10 and 15-17. the training path --------------------------------------------
     with tempfile.TemporaryDirectory(prefix="nww_smoke_") as work:
         train = training_phases(rng, cuda, card, work)
 
@@ -333,8 +340,12 @@ def main() -> int:
         serving_launches = stateful_phase(rng, cuda, work)
     serving_launches += one_call_step_phase(cuda, card)
     serving_launches += server_phase(rng, cuda, card)
-    log(f"[launches] mel kernel launches on the new serving paths: "
-        f"{serving_launches}")
+    # -- 14. the rest of the zoo, served ------------------------------------------------
+    with tempfile.TemporaryDirectory(prefix="nww_smoke_") as work:
+        serving_launches += zoo_phase(rng, cuda, card, work)
+    serving_launches += train["cascade_launches"]
+    log(f"[launches] mel kernel launches on the serving paths after phase "
+        f"5: {serving_launches}")
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "nanowakeword_tpu"))
@@ -369,6 +380,61 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+ZOO = ("cnn", "lstm", "gru", "rnn", "transformer", "tcn", "quartznet",
+       "conformer", "e_branchformer", "bcresnet")
+
+
+def zoo_phase(rng, cuda, card, work) -> int:
+    """Phase 14: every family beyond dnn / crnn / streaming_gru at
+    `build_backbone`'s default widths (layer_size 128, n_blocks 2, input
+    (16, 96)), weights from seed 0, through save_nww and load_model with
+    the bundled encoder: one clip's scores on the card against the CPU;
+    the forward at batch 256 by CUDA events. -> mel launches."""
+    import numpy as np
+    import torch
+    from nanowakeword_tpu_torch import NanoInterpreter
+    from nanowakeword_tpu_torch.data.features import \
+        default_encoder_variables
+    from nanowakeword_tpu_torch.export.artifact import save_nww
+    from nanowakeword_tpu_torch.models.model import Model
+    from nanowakeword_tpu_torch.ops import mel_cuda
+
+    clip = np.clip(rng.normal(0.0, 3000.0, 16000 * 2), -32768,
+                   32767).astype(np.int16)
+    batch = torch.from_numpy(rng.normal(0, 1, (256, 16, 96)).astype(
+        np.float32)).to(cuda)
+    encoder = default_encoder_variables()
+    mel_cuda.reset_launches()
+    for model_type in ZOO:
+        name = f"smoke_{model_type}"
+        model = Model(config={}, model_name=name, model_type=model_type,
+                      layer_dim=128, n_blocks=2, seed=SEED, device=cuda)
+        path = save_nww(os.path.join(work, name + ".nww"), model=model,
+                        config={}, model_name=name,
+                        encoder_variables=encoder)
+        traces = []
+        for device in (cuda, "cpu"):
+            interp = NanoInterpreter.load_model(path, device=device)
+            traces.append(np.array([r.score
+                                    for r in interp.predict_clip(clip)]))
+        scores, scores_c = traces
+        err = float(np.abs(scores - scores_c).max())
+        check(len(scores) == 25 and np.isfinite(scores).all()
+              and (scores[15:] > 0).all() and (scores <= 1).all(),
+              f"{model_type} scores malformed")
+        check(err <= SCORE_TOL, f"{model_type} card vs CPU {err}")
+        with torch.no_grad():
+            ms = cuda_ms(lambda: model.module(batch), 10)
+        log(f"[zoo] {card}: {model_type}: {model.n_params()} parameters; "
+            f"{len(scores)} chunks served, last score {scores[-1]:.4f}, card "
+            f"vs CPU max|score| {err:.3g}; forward at batch 256: {ms:.4f} ms "
+            f"(CUDA events, mean of 10 after warm-up)")
+    launches = mel_cuda.launches
+    check(launches >= len(ZOO) * 25,
+          f"{launches} mel launches for {len(ZOO)} served families")
+    return launches
 
 
 def _tone_clip(seed: int):
@@ -911,7 +977,268 @@ def training_phases(rng, cuda, card, work) -> dict:
     log(f"[serve] {os.path.basename(trained['artifact'])} on the card: "
         f"{len(scores)} chunks, last score {scores[-1]:.4f}, max "
         f"{scores.max():.4f}")
-    return {"mix_launches": mix_launches}
+
+    host_loop_phase(config, cuda, card, work, 100 / seconds)
+    bf16_phase(config, trained["dataset"], cuda, card)
+    cascade_launches = distill_phase(rng, config, cuda, card, work)
+    return {"mix_launches": mix_launches,
+            "cascade_launches": cascade_launches}
+
+
+def host_loop_phase(config, cuda, card, work, cached_rate) -> None:
+    """Phase 15: `run_pipeline(train_model=True)` with `device_cache` off
+    (the host loop) on phase 8's features, for the shipped CRNN and a
+    conformer at its default width: 200 steps straight with a checkpoint at
+    step 100, then a run resumed from that checkpoint for 100 more. The
+    resumed run must draw the same batches and end with the same weights."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from nanowakeword_tpu_torch.data.dataset import DynamicClassAwareSampler
+    from nanowakeword_tpu_torch.train.trainer import Trainer
+    from nanowakeword_tpu_torch.trainer import run_pipeline
+
+    drawn, loop_seconds = [], []
+    sample_batch = DynamicClassAwareSampler.sample_batch
+    train_model = Trainer.train_model
+
+    def recording_sample_batch(self):
+        batch = sample_batch(self)
+        drawn.append(np.asarray(batch, np.int64).copy())
+        return batch
+
+    def timed_train_model(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps = train_model(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        loop_seconds.append(time.perf_counter() - t0)
+        return steps
+
+    families = {
+        "crnn": dict(SHIPPED_CRNN),
+        "conformer": dict(SHIPPED_CRNN, model_type="conformer",
+                          layer_size=128, embedding_dim=64)}
+    # cuDNN may pick a backward algorithm that sums with atomics; the two
+    # runs are compared bit for bit, so both ask for deterministic ones
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    DynamicClassAwareSampler.sample_batch = recording_sample_batch
+    Trainer.train_model = timed_train_model
+    try:
+        for family, arch in families.items():
+            base = {k: v for k, v in config.items()
+                    if k not in SHIPPED_CRNN and k != "device_cache"}
+            base.update(arch, steps=200, model_name=f"host_{family}",
+                        checkpointing={"enabled": True,
+                                       "interval_steps": 100, "limit": 3})
+            runs = {}
+            for run in ("straight", "resumed"):
+                cfg = dict(base, output_dir=os.path.join(work, "host", run))
+                resume = None
+                if run == "resumed":
+                    resume = os.path.join(work, "host", f"resume_{family}")
+                    ckpts = os.path.join(resume, "training_artifacts",
+                                         "checkpoints")
+                    os.makedirs(ckpts)
+                    shutil.copy(os.path.join(
+                        runs["straight"]["project_dir"],
+                        "training_artifacts", "checkpoints",
+                        "checkpoint_step_100.pkl"), ckpts)
+                del drawn[:]
+                runs[run] = run_pipeline(cfg, train_model=True, resume=resume,
+                                         device=cuda)
+                runs[run]["drawn"] = list(drawn)
+                runs[run]["seconds"] = loop_seconds[-1]
+            a, b = runs["straight"], runs["resumed"]
+            loss_a, loss_b = (r["model"].history["loss"] for r in (a, b))
+            check(len(loss_a) == len(loss_b) == 200
+                  and np.isfinite(loss_a).all(), f"{family} loss history")
+            # the straight run's batches 101.. are the resumed run's first
+            n = min(len(a["drawn"]) - 101, len(b["drawn"]), 99)
+            same_batches = all(np.array_equal(a["drawn"][101 + i],
+                                              b["drawn"][i])
+                               for i in range(n))
+            check(n == 99 and same_batches,
+                  f"{family}: the resumed run drew other batches")
+            sd_a, sd_b = (r["model"].module.state_dict() for r in (a, b))
+            worst = max((sd_a[k].float() - sd_b[k].float()).abs().max().item()
+                        for k in sd_a)
+            equal = worst == 0.0 and loss_a == loss_b
+            check(worst <= RESUME_TOL, f"{family} resumed weights {worst}")
+            log(f"[host loop] {family} ({a['model'].n_params()} parameters), "
+                f"batch {sum(SHIPPED_COMPOSITION.values())}: loss "
+                f"{loss_a[0]:.4f} -> {np.mean(loss_a[-10:]):.4f}; resumed "
+                f"from step 100: the same {n} batches, weights and BatchNorm "
+                f"statistics "
+                + ("and the loss history equal bit for bit" if equal else
+                   f"max|diff| {worst:.3g} (bound {RESUME_TOL:g}; not bit "
+                   f"for bit: a kernel of this family sums in another order "
+                   f"from run to run)")
+                + " (cudnn.deterministic on)")
+            check(np.mean(loss_a[-10:]) < loss_a[0], f"{family} loss rose")
+            log(f"[time] {card}: host-loop training, {family}, batch 256: "
+                f"{200 / a['seconds']:.2f} steps/s over the straight 200 "
+                f"steps (first steps included), {99 / b['seconds']:.2f} "
+                f"steps/s over the resumed 99 (host clock after synchronize, "
+                f"checkpoint writes included); the device-cached loop of "
+                f"phase 9: {cached_rate:.2f} steps/s (shipped CRNN)")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        DynamicClassAwareSampler.sample_batch = sample_batch
+        Trainer.train_model = train_model
+
+
+def bf16_phase(config, dataset, cuda, card) -> None:
+    """Phase 16: the shipped CRNN in the device-cached loop with
+    `compute_dtype: bfloat16`: float32 masters, moments and BatchNorm
+    statistics after 100 steps, a falling loss, and ms/step in turns with
+    float32."""
+    import numpy as np
+    import torch
+    from nanowakeword_tpu_torch.models.model import Model
+    from nanowakeword_tpu_torch.train.cached import (build_cached_data,
+                                                     make_cached_train_loop)
+    from nanowakeword_tpu_torch.train.optim import Optimizer
+
+    data = build_cached_data(dataset, SHIPPED_COMPOSITION,
+                             config["feature_manifest"], cuda)
+    gen = torch.Generator(device=cuda).manual_seed(SEED)
+
+    def build(dtype, k_steps):
+        model = Model(config=config, model_name="t", input_shape=(16, 96),
+                      model_type="crnn", layer_dim=64, n_blocks=2,
+                      dropout_prob=0.3, seed=SEED, device=cuda).train()
+        optimizer = Optimizer(list(model.module.parameters()), config, 200)
+        loop = make_cached_train_loop(
+            model.module, optimizer, quotas=data.quotas, replace=data.replace,
+            k_steps=k_steps, compute_dtype=dtype, dropout_seed=SEED)
+        return model, optimizer, lambda: loop(
+            data.hardness, gen, data.features, data.labels, data.pools)
+
+    model, optimizer, run = build("bfloat16", 100)
+    losses = run()[:, 0].cpu().numpy()
+    check(np.isfinite(losses).all() and losses[-10:].mean() < losses[:10]
+          .mean(), f"bf16 loss {losses[:10].mean()} -> {losses[-10:].mean()}")
+    for k, v in model.module.state_dict().items():
+        check(not torch.is_floating_point(v) or v.dtype == torch.float32,
+              f"{k} is {v.dtype} after bf16 training")
+    for moments in optimizer.state.values():
+        check(all(t.dtype == torch.float32 for t in moments),
+              "a moment is not float32")
+    norm = model.module.backbone.norms[0]
+    check(int(norm.num_batches_tracked) == 100
+          and norm.running_mean.abs().sum().item() > 0,
+          "BatchNorm statistics did not move")
+    log(f"[bf16] shipped CRNN, compute_dtype bfloat16, 100 device-cached "
+        f"steps: loss {losses[:10].mean():.4f} -> {losses[-10:].mean():.4f} "
+        f"(means of 10); masters, moments and BatchNorm statistics float32")
+
+    loops = {"bfloat16": build("bfloat16", 50)[2],
+             "float32": build("float32", 50)[2]}
+    times = {k: [] for k in loops}
+    for dtype in ("float32", "bfloat16"):
+        loops[dtype]()                                    # warm-up
+    for dtype in ("float32", "bfloat16", "bfloat16", "float32"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loops[dtype]()
+        torch.cuda.synchronize()
+        times[dtype].append((time.perf_counter() - t0) * 1e3 / 50)
+    log(f"[time] {card}: device-cached training, shipped CRNN, batch 256, "
+        f"ms/step over 50 steps after 50 warm-up (host clock after "
+        f"synchronize, in turns): float32 "
+        f"{[round(t, 3) for t in times['float32']]}, bfloat16 "
+        f"{[round(t, 3) for t in times['bfloat16']]}")
+
+
+def distill_phase(rng, config, cuda, card, work) -> int:
+    """Phase 17: `distill_from_artifact` of the shipped CRNN on phase 8's
+    features, the default student, 500 of the 8000 steps; the `_lite.nww`
+    lands beside a copy of the teacher and the cascade serves it on the
+    card against the CPU. -> mel launches."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from nanowakeword_tpu_torch import NanoInterpreter
+    from nanowakeword_tpu_torch.export.artifact import load_nww
+    from nanowakeword_tpu_torch.ops import mel_cuda
+    from nanowakeword_tpu_torch.train import distill
+    from nanowakeword_tpu_torch.trainer import _build_training_data
+
+    out_dir = os.path.join(work, "distilled")
+    os.makedirs(out_dir)
+    teacher = os.path.join(out_dir, "hey_nano_crnn.nww")
+    shutil.copy(CRNN, teacher)
+    cfg = dict(config, distillation={"steps": 500, "log_interval": 250})
+    X_train = _build_training_data(cfg, config["feature_manifest"])
+
+    students, seconds = [], []
+    run_loop = distill._run_distill_loop
+
+    def timed_loop(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        students.append(run_loop(*args, **kwargs))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return students[-1]
+
+    distill._run_distill_loop = timed_loop
+    try:
+        lite = distill.distill_from_artifact(
+            teacher, X_train, cfg, (16, 96), out_dir, "hey_nano_crnn",
+            device=cuda)
+    finally:
+        distill._run_distill_loop = run_loop
+    history = students[0].history
+    first, best, final = (history["distill_first_loss"],
+                          history["distill_best_ema_loss"],
+                          history["distill_final_ema_loss"])
+    check(lite == os.path.join(out_dir, "hey_nano_crnn_lite.nww")
+          and os.path.exists(lite), f"lite artifact {lite}")
+    check(np.isfinite([first, best, final]).all() and best < first
+          and best <= final, f"EMA loss {first} -> best {best}, last {final}")
+    header, written, encoder = load_nww(lite, device=cuda)
+    check(header["has_encoder"] and encoder is not None,
+          "the lite artifact has no encoder")
+    for (k, v), p in zip(written.module.state_dict().items(),
+                         students[0].module.state_dict().values()):
+        check(torch.equal(v, p), f"{k} of the artifact is not the student's")
+    log(f"[distill] {students[0].n_params()} parameters, 500 steps: loss "
+        f"{first:.4f} -> EMA {final:.4f} (best {best:.4f}, restored); "
+        f"{os.path.basename(lite)} written with the teacher's encoder")
+    log(f"[time] {card}: distillation, shipped CRNN teacher, batch 256: "
+        f"{500 / seconds[0]:.2f} steps/s (500 steps in two dispatches of 250 "
+        f"row-index uploads, the feature upload included, host clock after "
+        f"synchronize)")
+
+    clip = np.clip(rng.normal(0.0, 3000.0, 16000 * 2), -32768,
+                   32767).astype(np.int16)
+    mel_cuda.reset_launches()
+    traces = []
+    for device in (cuda, "cpu"):
+        interp = NanoInterpreter.load_model(teacher, cascade=True,
+                                            gate_threshold=0.0, device=device)
+        check(interp.gate_name == "hey_nano_crnn_lite",
+              f"the cascade did not pick the new gate: {interp!r}")
+        results = interp.predict_clip(clip)
+        traces.append((np.array([r.gate_score for r in results]),
+                       np.array([r.score for r in results])))
+    launches = mel_cuda.launches
+    (gate, ver), (gate_c, ver_c) = traces
+    err = max(float(np.abs(gate - gate_c).max()),
+              float(np.abs(ver - ver_c).max()))
+    log(f"[distill] the cascade with the new gate: {len(gate)} chunks, gate "
+        f"{gate[-1]:.4f}, verifier {ver[-1]:.4f}; card vs CPU max|score| "
+        f"{err:.3g}; mel launches {launches}")
+    check(np.isfinite(gate).all() and (gate[15:] > 0).all(),
+          "gate scores malformed")
+    check(err <= SCORE_TOL, f"distilled cascade card vs CPU {err}")
+    check(launches >= len(gate), "the cascade did not launch the mel kernel")
+    return launches
 
 
 def step_card_vs_cpu(config, feats, cuda) -> None:

@@ -10,9 +10,12 @@ Training pipeline
   python -m nanowakeword_tpu_torch.cli -c config.yaml          # stages from
                                                                # the config
   python -m nanowakeword_tpu_torch.cli -c config.yaml -T --resume DIR
+  python -m nanowakeword_tpu_torch.cli -c config.yaml -d       # lite gate
+                                                               # from the
+                                                               # exported .nww
 
-Clip generation (-G) and distillation (-d) are not ported yet; asking for
-either raises and names ROADMAP.md.
+Clip generation (-G) is not ported yet; asking for it raises and names
+ROADMAP.md.
 
 Server
 ------
@@ -93,8 +96,8 @@ def _build_parser() -> argparse.ArgumentParser:
     train_group.add_argument("-T", "--train", action="store_true",
                              help="Train the wake word model.")
     train_group.add_argument("-d", "--distill", action="store_true",
-                             help="Distill a lite gate model (not ported "
-                                  "yet).")
+                             help="Distill a lite gate model (with -T or "
+                                  "standalone).")
     train_group.add_argument("-f", "--force-verify", action="store_true",
                              help="Re-verify all data directories.")
     train_group.add_argument("--overwrite", action="store_true",
@@ -166,10 +169,9 @@ def _run_training(args, config_stages=None):
             "train_model": args.train,
             "distill": args.distill,
         }
-    for stage, flag in (("generate_clips", "-G"), ("distill", "-d")):
-        if stages[stage]:
-            raise NotImplementedError(
-                f"{flag} ({stage}) is not ported to PyTorch yet (ROADMAP.md)")
+    if stages["generate_clips"]:
+        raise NotImplementedError(
+            "-G (generate_clips) is not ported to PyTorch yet (ROADMAP.md)")
     if args.force_verify:
         print("Note: -f has no effect in this port (it has no data "
               "verification stage).")
@@ -178,6 +180,8 @@ def _run_training(args, config_stages=None):
         argv.append("-t")
     if stages["train_model"]:
         argv.append("-T")
+    if stages["distill"]:
+        argv.append("-d")
     if args.overwrite:
         argv.append("--overwrite")
     if args.resume:
@@ -270,8 +274,9 @@ def main(argv=None):
                     parser.error(
                         "No pipeline stages specified!\n"
                         "Provide at least one of these:\n"
-                        "  CLI flags: -t, -T\n"
-                        "  OR in config file: transform_clips, train_model")
+                        "  CLI flags: -t, -T, -d\n"
+                        "  OR in config file: transform_clips, train_model, "
+                        "distill")
             except FileNotFoundError as e:
                 parser.error(f"Config file not found: {args.config}\n{e}")
         _run_training(args, config_stages)

@@ -6,39 +6,60 @@ arrays (`params`, and `batch_stats` where the model has BatchNorm), as the
 `flax_variables_from_state_dict` is the inverse for a classifier, as the
 `.nww` writer stores it.
 
+A classifier's tree is walked, not tabulated: every composite module of
+models/architectures.py lists its sub-modules in the order the reference
+constructs them (`flax_order`), and flax names the i-th sub-module of a
+class `<Class>_<i>`, so the names follow from the order. The leaves (Dense,
+Conv, LayerNorm, BatchNorm, the fast RNNs, the cell-based `UniRNN`,
+attention) each have a converter in both directions. A backbone with no
+`flax_order` (a user's custom module) is stored by its own state_dict
+names, nested at the dots.
+
 Layouts:
 * a 2-D conv kernel [kh, kw, in, out] becomes [out, in, kh, kw];
 * a 1-D conv kernel [k, in, out] becomes [out, in, k];
 * a Dense kernel [in, out] becomes a Linear weight [out, in];
+* a depthwise kernel [k, 1, C] becomes [C, 1, k] by the same transposes;
 * LayerNorm and BatchNorm `scale` become `weight`, BatchNorm's running
-  `mean`/`var` become `running_mean`/`running_var`.
+  `mean`/`var` become `running_mean`/`running_var`;
+* attention's `query`/`key`/`value` kernels [d, heads, head_dim] become
+  Linear weights [heads * head_dim, d], and `out` [heads, head_dim, d]
+  becomes [d, heads * head_dim].
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
+from nanowakeword_tpu_torch.models import architectures as A
 from nanowakeword_tpu_torch.models.embedding import infer_encoder_arch
-from nanowakeword_tpu_torch.models.fast_rnn import FastGRU
+from nanowakeword_tpu_torch.models.fast_rnn import FastGRU, FastLSTM
 
 
 def _t(a) -> torch.Tensor:
     return torch.tensor(np.asarray(a, np.float32))
 
 
+def _with_bias(sd: dict, p) -> dict:
+    if "bias" in p:
+        sd["bias"] = _t(p["bias"])
+    return sd
+
+
 def _dense(p) -> dict:
-    return {"weight": _t(np.asarray(p["kernel"]).T), "bias": _t(p["bias"])}
+    return _with_bias({"weight": _t(np.asarray(p["kernel"]).T)}, p)
 
 
 def _conv2d(p) -> dict:
-    return {"weight": _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1)),
-            "bias": _t(p["bias"])}
+    return _with_bias(
+        {"weight": _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))}, p)
 
 
 def _conv1d(p) -> dict:
-    return {"weight": _t(np.asarray(p["kernel"]).transpose(2, 1, 0)),
-            "bias": _t(p["bias"])}
+    return _with_bias(
+        {"weight": _t(np.asarray(p["kernel"]).transpose(2, 1, 0))}, p)
 
 
 def _layernorm(p) -> dict:
@@ -79,29 +100,67 @@ def encoder_state_dict_from_flax(variables) -> dict:
     return sd
 
 
-def _dnn(p) -> dict:
+def _np(t) -> np.ndarray:
+    return t.detach().cpu().numpy().astype(np.float32)
+
+
+def _sub(sd: dict, prefix: str) -> dict:
+    return {k[len(prefix) + 1:]: v for k, v in sd.items()
+            if k.startswith(prefix + ".")}
+
+
+def _count(sd: dict, prefix: str) -> int:
+    return len({k.split(".")[1] for k in sd if k.startswith(prefix + ".")})
+
+
+def _kernel_flax(sd, axes) -> dict:
+    """A Linear / Conv state_dict -> flax {kernel, bias}; `axes` moves the
+    weight into flax's layout."""
+    out = {"kernel": _np(sd["weight"]).transpose(axes).copy()}
+    if "bias" in sd:
+        out["bias"] = _np(sd["bias"])
+    return out
+
+
+def _dense_flax(sd) -> dict:
+    return _kernel_flax(sd, (1, 0))
+
+
+def _norm_flax(sd) -> dict:
+    return {"bias": _np(sd["bias"]), "scale": _np(sd["weight"])}
+
+
+def _rnn_flax(sd) -> dict:
+    return {"input_proj": _dense_flax(_sub(sd, "input_proj")),
+            "recurrent_bias": _np(sd["recurrent.bias"]),
+            "recurrent_kernel": _np(sd["recurrent.weight"]).T.copy()}
+
+
+def _attention(p, module) -> dict:
+    d = module.out.in_features
     sd = {}
-    n_dense = sum(1 for k in p if k.startswith("Dense_"))
-    for i in range(n_dense):
-        sd.update(_prefixed(f"linears.{i}", _dense(p[f"Dense_{i}"])))
-    for i in range(n_dense - 1):
-        sd.update(_prefixed(f"norms.{i}", _layernorm(p[f"LayerNorm_{i}"])))
+    for name in ("query", "key", "value"):
+        sd[f"{name}.weight"] = _t(np.asarray(p[name]["kernel"])
+                                  .reshape(-1, d).T)
+        sd[f"{name}.bias"] = _t(np.asarray(p[name]["bias"]).reshape(d))
+    sd["out.weight"] = _t(np.asarray(p["out"]["kernel"]).reshape(d, -1).T)
+    sd["out.bias"] = _t(p["out"]["bias"])
     return sd
 
 
-def _crnn(p, stats) -> dict:
-    sd = _prefixed("dense", _dense(p["Dense_0"]))
-    n_conv = sum(1 for k in p if k.startswith("Conv_"))
-    for i in range(n_conv):
-        sd.update(_prefixed(f"convs.{i}", _conv2d(p[f"Conv_{i}"])))
-        sd.update(_prefixed(f"norms.{i}", _batchnorm(
-            p[f"BatchNorm_{i}"], stats[f"BatchNorm_{i}"])))
-    (rnn_params,) = (v for k, v in p.items() if k.startswith("BiRNN_"))
-    for name, layer in rnn_params.items():
-        # FastGRU_j / FastLSTM_j, numbered in call order
-        j = int(name.rsplit("_", 1)[1])
-        sd.update(_prefixed(f"rnn.layers.{j}", _rnn(layer)))
-    return sd
+def _attention_flax(sd, module) -> dict:
+    h = module.n_head
+    d = module.out.in_features
+    out = {}
+    for name in ("query", "key", "value"):
+        out[name] = {
+            "kernel": _np(sd[f"{name}.weight"]).T.reshape(-1, h, d // h)
+            .copy(),
+            "bias": _np(sd[f"{name}.bias"]).reshape(h, d // h)}
+    out["out"] = {"kernel": _np(sd["out.weight"]).T.reshape(h, d // h, -1)
+                  .copy(),
+                  "bias": _np(sd["out.bias"])}
+    return out
 
 
 _GRU_GATES = ("r", "z", "n")
@@ -133,64 +192,6 @@ def unirnn_state_dict_from_flax(p) -> dict:
             sd[f"layers.{i}.recurrent.bias"] = stacked("h", "bias")
     return sd
 
-
-def _streaming_gru(p) -> dict:
-    sd = _prefixed("dense", _dense(p["Dense_0"]))
-    sd.update(_prefixed("rnn", unirnn_state_dict_from_flax(p["UniRNN_0"])))
-    return sd
-
-
-def model_state_dict_from_flax(variables, model) -> dict:
-    """A Model's variables ({"params", "batch_stats"}) -> the state_dict of
-    the port's `model.module` (a WakeWordModule)."""
-    params = variables["params"]
-    stats = variables.get("batch_stats", {})
-    if model.model_type == "dnn":
-        backbone = _dnn(params["backbone"])
-    elif model.model_type == "crnn":
-        backbone = _crnn(params["backbone"], stats["backbone"])
-    elif model.model_type == "streaming_gru":
-        backbone = _streaming_gru(params["backbone"])
-    else:
-        raise NotImplementedError(
-            f"no weight conversion for model_type '{model.model_type}'")
-    sd = _prefixed("backbone", backbone)
-    sd.update(_prefixed("head_hidden", _dense(params["Dense_0"])))
-    sd.update(_prefixed("head_out", _dense(params["Dense_1"])))
-    return sd
-
-
-# -- the inverse: the port's state_dict -> flax variables -----------------------
-
-
-def _np(t) -> np.ndarray:
-    return t.detach().cpu().numpy().astype(np.float32)
-
-
-def _sub(sd: dict, prefix: str) -> dict:
-    return {k[len(prefix) + 1:]: v for k, v in sd.items()
-            if k.startswith(prefix + ".")}
-
-
-def _dense_flax(sd) -> dict:
-    return {"bias": _np(sd["bias"]), "kernel": _np(sd["weight"]).T.copy()}
-
-
-def _conv2d_flax(sd) -> dict:
-    return {"bias": _np(sd["bias"]),
-            "kernel": _np(sd["weight"]).transpose(2, 3, 1, 0).copy()}
-
-
-def _rnn_flax(sd) -> dict:
-    return {"input_proj": _dense_flax(_sub(sd, "input_proj")),
-            "recurrent_bias": _np(sd["recurrent.bias"]),
-            "recurrent_kernel": _np(sd["recurrent.weight"]).T.copy()}
-
-
-def _count(sd: dict, prefix: str) -> int:
-    return len({k.split(".")[1] for k in sd if k.startswith(prefix + ".")})
-
-
 def flax_params_from_unirnn(sd) -> dict:
     """architectures.UniRNN's state_dict -> the flax `UniRNN`'s params: the
     inverse of `unirnn_state_dict_from_flax`."""
@@ -217,41 +218,142 @@ def flax_params_from_unirnn(sd) -> dict:
     return params
 
 
+# -- the walk over a classifier's modules ------------------------------------------
+
+_BATCHNORMS = (A.FlaxBatchNorm1d, A.FlaxBatchNorm2d)
+# leaf module type -> (flax class name,
+#                      (flax params, flax stats, module) -> state_dict,
+#                      (state_dict, module) -> flax params)
+_LEAVES = (
+    (nn.Linear, "Dense", lambda p, s, m: _dense(p),
+     lambda sd, m: _dense_flax(sd)),
+    (nn.Conv2d, "Conv", lambda p, s, m: _conv2d(p),
+     lambda sd, m: _kernel_flax(sd, (2, 3, 1, 0))),
+    (nn.Conv1d, "Conv", lambda p, s, m: _conv1d(p),
+     lambda sd, m: _kernel_flax(sd, (2, 1, 0))),
+    (nn.LayerNorm, "LayerNorm", lambda p, s, m: _layernorm(p),
+     lambda sd, m: _norm_flax(sd)),
+    (_BATCHNORMS, "BatchNorm", lambda p, s, m: _batchnorm(p, s),
+     lambda sd, m: _norm_flax(sd)),
+    (FastGRU, "FastGRU", lambda p, s, m: _rnn(p),
+     lambda sd, m: _rnn_flax(sd)),
+    (FastLSTM, "FastLSTM", lambda p, s, m: _rnn(p),
+     lambda sd, m: _rnn_flax(sd)),
+    (A.UniRNN, "UniRNN", lambda p, s, m: unirnn_state_dict_from_flax(p),
+     lambda sd, m: flax_params_from_unirnn(sd)),
+    (A.MultiHeadAttention, "MultiHeadDotProductAttention",
+     lambda p, s, m: _attention(p, m), _attention_flax),
+)
+
+
+def _leaf(module):
+    for types, name, from_flax, to_flax in _LEAVES:
+        if isinstance(module, types):
+            return name, from_flax, to_flax
+    return None
+
+
+def _flax_children(module):
+    """(flax name, sub-module) in the reference's construction order: the
+    i-th sub-module of a flax class is named `<Class>_<i>`."""
+    counts: dict = {}
+    for child in module.flax_order():
+        leaf = _leaf(child)
+        cls = leaf[0] if leaf else type(child).__name__
+        i = counts.get(cls, 0)
+        counts[cls] = i + 1
+        yield f"{cls}_{i}", child
+
+
+def _child_paths(module) -> dict:
+    """id(sub-module) -> its state_dict prefix inside `module`, for direct
+    children and the entries of a ModuleList."""
+    names = {}
+    for n, m in module.named_children():
+        names[id(m)] = n
+        if isinstance(m, nn.ModuleList):
+            names.update({id(e): f"{n}.{i}" for i, e in enumerate(m)})
+    return names
+
+
+def _module_from_flax(module, params, stats) -> dict:
+    leaf = _leaf(module)
+    if leaf:
+        return leaf[1](params, stats, module)
+    if not hasattr(module, "flax_order"):
+        return _opaque_from_tree(params)
+    names = _child_paths(module)
+    sd = {}
+    for name, child in _flax_children(module):
+        sd.update(_prefixed(names[id(child)], _module_from_flax(
+            child, params[name], (stats or {}).get(name))))
+    return sd
+
+
+def _module_to_flax(module, sd):
+    """-> (flax params, flax batch_stats or None) of one module, given its
+    own state_dict."""
+    leaf = _leaf(module)
+    if leaf:
+        stats = None
+        if isinstance(module, _BATCHNORMS):
+            stats = {"mean": _np(sd["running_mean"]),
+                     "var": _np(sd["running_var"])}
+        return leaf[2](sd, module), stats
+    if not hasattr(module, "flax_order"):
+        return _opaque_to_tree(sd), None
+    names = _child_paths(module)
+    params, stats = {}, {}
+    for name, child in _flax_children(module):
+        params[name], child_stats = _module_to_flax(
+            child, _sub(sd, names[id(child)]))
+        if child_stats:
+            stats[name] = child_stats
+    return params, stats or None
+
+
+def _opaque_from_tree(tree, prefix="") -> dict:
+    """A custom module's tree, nested at the dots of its state_dict names,
+    back to that state_dict (dtypes as stored)."""
+    sd = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            sd.update(_opaque_from_tree(v, f"{prefix}{k}."))
+        else:
+            sd[prefix + k] = torch.tensor(np.asarray(v))
+    return sd
+
+
+def _opaque_to_tree(sd) -> dict:
+    tree: dict = {}
+    for k, v in sd.items():
+        *path, leaf = k.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = v.detach().cpu().numpy()
+    return tree
+
+
+def model_state_dict_from_flax(variables, model) -> dict:
+    """A Model's variables ({"params", "batch_stats"}) -> the state_dict of
+    the port's `model.module` (a WakeWordModule), for every model type."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    sd = _prefixed("backbone", _module_from_flax(
+        model.module.backbone, params["backbone"], stats.get("backbone")))
+    sd.update(_prefixed("head_hidden", _dense(params["Dense_0"])))
+    sd.update(_prefixed("head_out", _dense(params["Dense_1"])))
+    return sd
+
+
 def flax_variables_from_state_dict(state_dict, model) -> dict:
     """The port's `model.module.state_dict()` -> the JAX `Model`'s variables
-    ({"params"}, and {"batch_stats"} for the CRNN), as numpy arrays."""
+    ({"params"}, and {"batch_stats"} where the backbone has BatchNorm), as
+    numpy arrays."""
     sd = dict(state_dict)
-    bb = _sub(sd, "backbone")
-    if model.model_type == "dnn":
-        backbone = {f"Dense_{i}": _dense_flax(_sub(bb, f"linears.{i}"))
-                    for i in range(_count(bb, "linears"))}
-        for i in range(_count(bb, "norms")):
-            norm = _sub(bb, f"norms.{i}")
-            backbone[f"LayerNorm_{i}"] = {"bias": _np(norm["bias"]),
-                                          "scale": _np(norm["weight"])}
-        stats = None
-    elif model.model_type == "crnn":
-        backbone = {"Dense_0": _dense_flax(_sub(bb, "dense"))}
-        stats = {}
-        for i in range(_count(bb, "convs")):
-            norm = _sub(bb, f"norms.{i}")
-            backbone[f"Conv_{i}"] = _conv2d_flax(_sub(bb, f"convs.{i}"))
-            backbone[f"BatchNorm_{i}"] = {"bias": _np(norm["bias"]),
-                                          "scale": _np(norm["weight"])}
-            stats[f"BatchNorm_{i}"] = {"mean": _np(norm["running_mean"]),
-                                       "var": _np(norm["running_var"])}
-        name = "FastGRU" if isinstance(
-            model.module.backbone.rnn.layers[0], FastGRU) else "FastLSTM"
-        backbone["BiRNN_0"] = {
-            f"{name}_{j}": _rnn_flax(_sub(bb, f"rnn.layers.{j}"))
-            for j in range(_count(_sub(bb, "rnn"), "layers"))}
-    elif model.model_type == "streaming_gru":
-        backbone = {"Dense_0": _dense_flax(_sub(bb, "dense")),
-                    "UniRNN_0": flax_params_from_unirnn(_sub(bb, "rnn"))}
-        stats = None
-    else:
-        raise NotImplementedError(
-            f"no weight conversion for model_type '{model.model_type}'")
+    backbone, stats = _module_to_flax(model.module.backbone,
+                                      _sub(sd, "backbone"))
     params = {"Dense_0": _dense_flax(_sub(sd, "head_hidden")),
               "Dense_1": _dense_flax(_sub(sd, "head_out")),
               "backbone": backbone}

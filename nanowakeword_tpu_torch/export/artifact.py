@@ -69,11 +69,18 @@ def _int8_dequantize_tree(stored, scales):
     return x.astype(np.float32) * s if s.size else x
 
 
-def load_nww(path: str, device="cuda"):
-    """-> (header, Model on `device` with the stored weights,
-    encoder state_dict | None)."""
-    from nanowakeword_tpu_torch.models.model import Model
+def check_weights_dtype(cfg) -> None:
+    """Reject a bad `weights_dtype` entry of a config section (for example
+    `distillation`) before any training runs."""
+    wd = cfg.get("weights_dtype")
+    if wd is not None and wd not in WEIGHTS_DTYPES:
+        raise ValueError("distillation.weights_dtype must be one of "
+                         f"{WEIGHTS_DTYPES}, got {wd!r}")
 
+
+def _read_nww(path: str):
+    """-> (header, classifier variables, encoder variables | None), both
+    trees in the flax layout as float32 numpy arrays."""
     with open(path, "rb") as f:
         header = _read_header(f, path)
         payload = msgpack_restore(f.read())
@@ -89,6 +96,25 @@ def load_nww(path: str, device="cuda"):
             return _int8_dequantize_tree(tree, scales)
         return tree
 
+    variables = restore(payload["variables"], payload.get("scales"))
+    encoder = payload.get("encoder_variables")
+    if encoder is not None:
+        encoder = restore(encoder, payload.get("encoder_scales"))
+    return header, variables, encoder
+
+
+def read_nww_payload(path: str):
+    """-> (classifier variables, encoder variables | None) of an artifact,
+    in the flax layout, as `save_nww` takes them."""
+    return _read_nww(path)[1:]
+
+
+def load_nww(path: str, device="cuda"):
+    """-> (header, Model on `device` with the stored weights,
+    encoder state_dict | None)."""
+    from nanowakeword_tpu_torch.models.model import Model
+
+    header, variables, encoder = _read_nww(path)
     build = header.get("build", {})
     model = Model(
         config=dict(header.get("arch_config", {})),
@@ -101,12 +127,9 @@ def load_nww(path: str, device="cuda"):
         dropout_prob=float(build.get("dropout_prob", 0.5)),
         device=device,
     )
-    variables = restore(payload["variables"], payload.get("scales"))
     model.load_state_dict(model_state_dict_from_flax(variables, model))
-    encoder = payload.get("encoder_variables")
     if encoder is not None:
-        encoder = encoder_state_dict_from_flax(
-            restore(encoder, payload.get("encoder_scales")))
+        encoder = encoder_state_dict_from_flax(encoder)
     return header, model, encoder
 
 

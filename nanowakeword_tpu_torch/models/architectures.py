@@ -1,21 +1,36 @@
-"""The classifier backbones of the shipped artifacts, as torch modules.
+"""The wake-word classifier architecture zoo, as torch modules.
 
-The counterparts of `get_activation`, `BiRNN`, `UniRNN`, `DNNModel`,
-`CRNNModel` and `StreamingGRUModel` in
-`nanowakeword_tpu/models/architectures.py`, on [B, T, 96] feature frames,
-emitting an `embedding_dim` vector for the shared head (models/model.py).
-The rest of the zoo is still to be ported (ROADMAP.md).
+The counterpart of `nanowakeword_tpu/models/architectures.py`: the thirteen
+selectable backbones on [B, T, 96] feature frames, each emitting an
+`embedding_dim` vector for the shared head (models/model.py). They are
+`nn.Module`s on library calls (matrix products, cuDNN convolutions,
+softmax), as the reference computes them in XLA.
 
 flax infers input widths at first call; torch modules take them at
 construction, so each backbone here takes the input shape it will see.
+
+Every module with weights of its own lists its sub-modules in the order
+the reference constructs them (`flax_order`); convert.py derives flax's
+automatic names (`Conv_0`, `BatchNorm_1`, ...) from that order, so the
+weights carry across in both directions without a table per family.
+
+Where flax and torch differ, the modules follow flax: LayerNorm eps 1e-6,
+BatchNorm momentum 0.99 with the biased variance, `SAME` padding computed
+from the input length (with a stride it is not torch's symmetric padding),
+the tanh gelu, and attention projections laid out head by head. Inside a
+backbone, convolutions see [B, C, T] or [B, C, T, F] where flax sees
+channels last.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import Callable, Sequence
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from nanowakeword_tpu_torch.models.fast_rnn import FastGRU, FastLSTM
@@ -40,15 +55,17 @@ def get_activation(name: str) -> Activation:
     return torch.relu
 
 
-class FlaxBatchNorm2d(nn.BatchNorm2d):
-    """BatchNorm over [B, C, H, W] with flax `nn.BatchNorm`'s training
-    semantics.
+class _FlaxBatchNorm:
+    """flax `nn.BatchNorm`'s training semantics over [B, C, ...], mixed into
+    torch's BatchNorm1d / BatchNorm2d.
 
     In training mode the batch statistics are mean(x) and the biased
     variance mean(x^2) - mean(x)^2 (flax's fast variance, floored at 0)
-    over (B, H, W), and the running statistics move as
-    `running = 0.99 running + 0.01 batch`. Eval mode is torch's
-    BatchNorm2d on the running statistics, unchanged.
+    over every axis but the channels, and the running statistics move as
+    `running = 0.99 running + 0.01 batch`. Eval mode is torch's batch norm
+    on the running statistics, unchanged. Statistics are taken and applied
+    in float32 whatever the input's dtype, as flax does, so bf16 training
+    keeps float32 running statistics.
     """
 
     def __init__(self, num_features: int, eps: float = BATCHNORM_EPS,
@@ -58,21 +75,71 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         self.flax_momentum = momentum
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
+        if not self.training and x.dtype == torch.float32:
             return super().forward(x)
-        dims = (0, 2, 3)
-        mean = x.mean(dims)
-        var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
-        m = self.flax_momentum
-        with torch.no_grad():
-            self.running_mean.copy_(m * self.running_mean
-                                    + (1.0 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
-            self.num_batches_tracked.add_(1)
-        shape = (1, -1, 1, 1)
+        dims = (0,) + tuple(range(2, x.ndim))
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        xf = x.float()
+        if self.training:
+            mean = xf.mean(dims)
+            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+            m = self.flax_momentum
+            with torch.no_grad():
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var
+                                       + (1.0 - m) * var)
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean.view(shape)) * mul.view(shape) + \
+        out = (xf - mean.view(shape)) * mul.view(shape) + \
             self.bias.view(shape)
+        return out.to(x.dtype)
+
+
+class FlaxBatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
+    """BatchNorm over [B, C, H, W] with flax's semantics."""
+
+
+class FlaxBatchNorm1d(_FlaxBatchNorm, nn.BatchNorm1d):
+    """BatchNorm over [B, C, T] with flax's semantics."""
+
+
+def same_padding(n: int, kernel: int, stride: int = 1,
+                 dilation: int = 1) -> tuple:
+    """flax / XLA `SAME` padding of one axis of length n -> (before, after):
+    the output has ceil(n / stride) positions, the total is what that
+    needs, and the smaller half comes first."""
+    span = (kernel - 1) * dilation + 1
+    total = max((-(-n // stride) - 1) * stride + span - n, 0)
+    return total // 2, total - total // 2
+
+
+class SameConv1d(nn.Conv1d):
+    """Conv1d over [B, C, T] with flax's `SAME` padding."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lo, hi = same_padding(x.shape[-1], self.kernel_size[0],
+                              self.stride[0], self.dilation[0])
+        if lo != hi:
+            x, lo = F.pad(x, (lo, hi)), 0
+        return F.conv1d(x, self.weight, self.bias, self.stride, lo,
+                        self.dilation, self.groups)
+
+
+class SameConv2d(nn.Conv2d):
+    """Conv2d over [B, C, H, W] with flax's `SAME` padding on both axes."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        (t, b), (l, r) = (same_padding(x.shape[-2 + i], self.kernel_size[i],
+                                       self.stride[i], self.dilation[i])
+                          for i in range(2))
+        pad = (t, l)
+        if t != b or l != r:
+            x, pad = F.pad(x, (l, r, t, b)), (0, 0)
+        return F.conv2d(x, self.weight, self.bias, self.stride, pad,
+                        self.dilation, self.groups)
 
 
 class BiRNN(nn.Module):
@@ -94,6 +161,9 @@ class BiRNN(nn.Module):
             self.layers.append(rnn(width, hidden, reverse=False))
             self.layers.append(rnn(width, hidden, reverse=True))
         self.dropout = nn.Dropout(dropout if n_layers > 1 else 0.0)
+
+    def flax_order(self):
+        return list(self.layers)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n_layers = len(self.layers) // 2
@@ -219,6 +289,9 @@ class StreamingGRUModel(nn.Module):
         self.dropout = nn.Dropout(dropout_prob)
         self.dense = nn.Linear(hidden_dim, embedding_dim)
 
+    def flax_order(self):
+        return [self.rnn, self.dense]
+
     def initial_carry(self, x: torch.Tensor) -> tuple:
         return self.rnn.initial_carry(x)
 
@@ -246,6 +319,9 @@ class DNNModel(nn.Module):
             for _ in range(n_blocks + 1))
         self.dropout = nn.Dropout(dropout_prob)
         self.activation = activation
+
+    def flax_order(self):
+        return [*self.linears, *self.norms]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.reshape(x.shape[0], -1)
@@ -282,6 +358,9 @@ class CRNNModel(nn.Module):
         self.dense = nn.Linear(2 * rnn_hidden_size, embedding_dim)
         self.activation = activation
 
+    def flax_order(self):
+        return [*self.convs, *self.norms, self.rnn, self.dense]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = x[:, None]                              # [B, 1, T, F]
         with no_tf32_convs():
@@ -293,3 +372,451 @@ class CRNNModel(nn.Module):
         seq = h.permute(0, 3, 1, 2).reshape(b, wc, c * hc)
         out = self.rnn(seq)
         return self.dense(self.dropout(out[:, -1, :]))
+
+
+class CNNModel(nn.Module):
+    """Two conv + max-pool stages, then Dense(128) on the flattened map
+    (reference "cnn"). The map is flattened channels last, as flax holds
+    it, so the Dense kernel carries across unchanged."""
+
+    def __init__(self, input_shape, embedding_dim: int, dropout_prob: float,
+                 activation: Activation = torch.relu):
+        super().__init__()
+        t, f = (int(s) for s in input_shape)
+        self.convs = nn.ModuleList([SameConv2d(1, 16, 3),
+                                    SameConv2d(16, 32, 3)])
+        self.hidden = nn.Linear(32 * (t // 4) * (f // 4), 128)
+        self.dropout = nn.Dropout(dropout_prob)
+        self.dense = nn.Linear(128, embedding_dim)
+        self.activation = activation
+
+    def flax_order(self):
+        return [*self.convs, self.hidden, self.dense]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x[:, None]                              # [B, 1, T, F]
+        with no_tf32_convs():
+            for conv in self.convs:
+                h = F.max_pool2d(self.activation(conv(h)), 2, 2)
+        h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
+        return self.dense(self.dropout(self.activation(self.hidden(h))))
+
+
+class LSTMModel(nn.Module):
+    """Bidirectional LSTM (or GRU), last step, Dense (reference "lstm" /
+    "gru"). Dropout between layers only when there is more than one."""
+
+    cell = "lstm"
+
+    def __init__(self, input_shape, hidden_dim: int, n_layers: int,
+                 embedding_dim: int, dropout_prob: float):
+        super().__init__()
+        dr = dropout_prob if n_layers > 1 else 0.0
+        self.rnn = BiRNN(int(input_shape[-1]), hidden_dim, n_layers,
+                         self.cell, dr)
+        self.dropout = nn.Dropout(dropout_prob)
+        self.dense = nn.Linear(2 * hidden_dim, embedding_dim)
+
+    def flax_order(self):
+        return [self.rnn, self.dense]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.dense(self.dropout(self.rnn(x)[:, -1, :]))
+
+
+class GRUModel(LSTMModel):
+    cell = "gru"
+
+
+class RNNModel(LSTMModel):
+    """The fixed bi-LSTM of width 64 (reference "rnn")."""
+
+    def __init__(self, input_shape, n_blocks: int, embedding_dim: int,
+                 dropout_prob: float):
+        super().__init__(input_shape, 64, n_blocks, embedding_dim,
+                         dropout_prob)
+
+
+def sinusoidal_positions(max_len: int, d_model: int) -> np.ndarray:
+    position = np.arange(max_len)[:, None]
+    div = np.exp(np.arange(0, d_model, 2) * (-math.log(10000.0) / d_model))
+    pe = np.zeros((max_len, d_model), np.float32)
+    pe[:, 0::2] = np.sin(position * div)
+    pe[:, 1::2] = np.cos(position * div)
+    return pe
+
+
+class MultiHeadAttention(nn.Module):
+    """Self-attention as flax's `nn.MultiHeadDotProductAttention` computes
+    it: softmax((Q / sqrt(head_dim)) K^T) V, dropout on the attention
+    weights, then the output projection. The four projections have biases;
+    row h * head_dim + d of `query.weight` is flax's `query/kernel[:, h, d]`
+    and column h * head_dim + d of `out.weight` is `out/kernel[h, d, :]`,
+    so the weights carry across by a reshape."""
+
+    def __init__(self, d_model: int, n_head: int, dropout: float):
+        super().__init__()
+        if d_model % n_head:
+            raise ValueError(f"d_model {d_model} is not divisible by "
+                             f"n_head {n_head}")
+        self.n_head = n_head
+        self.query = nn.Linear(d_model, d_model)
+        self.key = nn.Linear(d_model, d_model)
+        self.value = nn.Linear(d_model, d_model)
+        self.out = nn.Linear(d_model, d_model)
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, t, d = x.shape
+        heads = (b, t, self.n_head, d // self.n_head)
+        q = self.query(x).view(heads).transpose(1, 2)      # [B, h, T, hd]
+        k = self.key(x).view(heads).transpose(1, 2)
+        v = self.value(x).view(heads).transpose(1, 2)
+        q = q / math.sqrt(d // self.n_head)
+        weights = torch.softmax(q @ k.transpose(-1, -2), dim=-1)
+        mixed = self.dropout(weights) @ v                  # [B, h, T, hd]
+        return self.out(mixed.transpose(1, 2).reshape(b, t, d))
+
+
+class PostLNEncoderLayer(nn.Module):
+    """Post-norm transformer encoder layer with a relu FFN of 4x width."""
+
+    def __init__(self, d_model: int, n_head: int, dropout: float):
+        super().__init__()
+        self.attention = MultiHeadAttention(d_model, n_head, dropout)
+        self.norm1 = nn.LayerNorm(d_model, eps=LAYERNORM_EPS)
+        self.ffn_in = nn.Linear(d_model, 4 * d_model)
+        self.ffn_out = nn.Linear(4 * d_model, d_model)
+        self.norm2 = nn.LayerNorm(d_model, eps=LAYERNORM_EPS)
+        self.dropout = nn.Dropout(dropout)
+
+    def flax_order(self):
+        return [self.attention, self.norm1, self.ffn_in, self.ffn_out,
+                self.norm2]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.norm1(x + self.dropout(self.attention(x)))
+        h = self.dropout(torch.relu(self.ffn_in(x)))
+        return self.norm2(x + self.dropout(self.ffn_out(h)))
+
+
+class TransformerModel(nn.Module):
+    def __init__(self, input_shape, d_model: int, n_head: int, n_layers: int,
+                 embedding_dim: int, dropout_prob: float, max_len: int = 512):
+        super().__init__()
+        self.d_model = d_model
+        self.embed = nn.Linear(int(input_shape[-1]), d_model)
+        self.register_buffer(
+            "positions", torch.from_numpy(sinusoidal_positions(max_len,
+                                                               d_model)),
+            persistent=False)
+        self.dropout = nn.Dropout(dropout_prob)
+        self.layers = nn.ModuleList(
+            PostLNEncoderLayer(d_model, n_head, dropout_prob)
+            for _ in range(n_layers))
+        self.dense = nn.Linear(d_model, embedding_dim)
+
+    def flax_order(self):
+        return [self.embed, *self.layers, self.dense]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.embed(x) * math.sqrt(self.d_model)
+        x = self.dropout(x + self.positions[:x.shape[1]].to(x.dtype))
+        for layer in self.layers:
+            x = layer(x)
+        return self.dense(x.mean(dim=1))
+
+
+class TemporalBlock(nn.Module):
+    """Two causal dilated convolutions over [B, C, T] (left padding only)
+    with a residual, which is a 1x1 convolution when the width changes."""
+
+    def __init__(self, n_inputs: int, n_outputs: int, kernel_size: int,
+                 dilation: int, dropout: float):
+        super().__init__()
+        self.pad = (kernel_size - 1) * dilation
+        self.conv1 = nn.Conv1d(n_inputs, n_outputs, kernel_size,
+                               dilation=dilation)
+        self.conv2 = nn.Conv1d(n_outputs, n_outputs, kernel_size,
+                               dilation=dilation)
+        self.residual = (nn.Conv1d(n_inputs, n_outputs, 1)
+                         if n_inputs != n_outputs else None)
+        self.dropout = nn.Dropout(dropout)
+
+    def flax_order(self):
+        order = [self.conv1, self.conv2]
+        return order + [self.residual] if self.residual is not None else order
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.dropout(torch.relu(self.conv1(F.pad(x, (self.pad, 0)))))
+        out = self.dropout(torch.relu(self.conv2(F.pad(out, (self.pad, 0)))))
+        res = x if self.residual is None else self.residual(x)
+        return torch.relu(out + res)
+
+
+class TCNModel(nn.Module):
+    def __init__(self, input_shape, num_channels: Sequence[int],
+                 embedding_dim: int, kernel_size: int, dropout_prob: float):
+        super().__init__()
+        chans = (int(input_shape[-1]),) + tuple(int(c) for c in num_channels)
+        self.blocks = nn.ModuleList(
+            TemporalBlock(a, b, kernel_size, 2 ** i, dropout_prob)
+            for i, (a, b) in enumerate(zip(chans, chans[1:])))
+        self.dense = nn.Linear(chans[-1], embedding_dim)
+
+    def flax_order(self):
+        return [*self.blocks, self.dense]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x.transpose(1, 2)                       # [B, F, T]
+        with no_tf32_convs():
+            for block in self.blocks:
+                h = block(h)
+        return self.dense(h[:, :, -1])
+
+
+class QuartzNetBlock(nn.Module):
+    """Depthwise + pointwise convolution, BatchNorm, and a residual that is
+    a 1x1 convolution + BatchNorm when the width changes, over [B, C, T]."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 dropout: float):
+        super().__init__()
+        self.depthwise = SameConv1d(in_channels, in_channels, kernel_size,
+                                    groups=in_channels)
+        self.pointwise = nn.Conv1d(in_channels, out_channels, 1)
+        self.norm = FlaxBatchNorm1d(out_channels)
+        self.residual = self.residual_norm = None
+        if in_channels != out_channels:
+            self.residual = nn.Conv1d(in_channels, out_channels, 1)
+            self.residual_norm = FlaxBatchNorm1d(out_channels)
+        self.dropout = nn.Dropout(dropout)
+
+    def flax_order(self):
+        order = [self.depthwise, self.pointwise, self.norm]
+        if self.residual is not None:
+            order += [self.residual, self.residual_norm]
+        return order
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.norm(self.pointwise(self.depthwise(x)))
+        if self.residual is not None:
+            x = self.residual_norm(self.residual(x))
+        return self.dropout(torch.relu(h + x))
+
+
+class QuartzNetModel(nn.Module):
+    """`quartznet_config` is [[channels, kernel, repetitions], ...]."""
+
+    def __init__(self, input_shape, quartznet_config: Sequence,
+                 embedding_dim: int, dropout_prob: float):
+        super().__init__()
+        width = int(input_shape[-1])
+        self.blocks = nn.ModuleList()
+        for channels, kernel, reps in quartznet_config:
+            for _ in range(int(reps)):
+                self.blocks.append(QuartzNetBlock(width, int(channels),
+                                                  int(kernel), dropout_prob))
+                width = int(channels)
+        self.dense = nn.Linear(width, embedding_dim)
+
+    def flax_order(self):
+        return [*self.blocks, self.dense]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x.transpose(1, 2)                       # [B, F, T]
+        with no_tf32_convs():
+            for block in self.blocks:
+                h = block(h)
+        return self.dense(h.mean(dim=2))
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+class ConvolutionModule(nn.Module):
+    """The conformer's convolution module on [B, T, d]: LayerNorm, pointwise
+    conv to 2d, GLU, depthwise conv, BatchNorm, swish, pointwise conv, and
+    a fixed dropout of 0.1."""
+
+    def __init__(self, d_model: int, kernel_size: int = 31):
+        super().__init__()
+        self.norm = nn.LayerNorm(d_model, eps=LAYERNORM_EPS)
+        self.expand = nn.Conv1d(d_model, 2 * d_model, 1)
+        self.depthwise = SameConv1d(d_model, d_model, kernel_size,
+                                    groups=d_model)
+        self.batch_norm = FlaxBatchNorm1d(d_model)
+        self.project = nn.Conv1d(d_model, d_model, 1)
+        self.dropout = nn.Dropout(0.1)
+
+    def flax_order(self):
+        return [self.norm, self.expand, self.depthwise, self.batch_norm,
+                self.project]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.norm(x).transpose(1, 2)            # [B, d, T]
+        with no_tf32_convs():
+            h = F.glu(self.expand(h), dim=1)        # a * sigmoid(b)
+            h = swish(self.batch_norm(self.depthwise(h)))
+            h = self.project(h)
+        return self.dropout(h.transpose(1, 2))
+
+
+class FeedForwardModule(nn.Module):
+    def __init__(self, d_model: int, dropout: float = 0.1):
+        super().__init__()
+        self.norm = nn.LayerNorm(d_model, eps=LAYERNORM_EPS)
+        self.expand = nn.Linear(d_model, 4 * d_model)
+        self.project = nn.Linear(4 * d_model, d_model)
+        self.dropout = nn.Dropout(dropout)
+
+    def flax_order(self):
+        return [self.norm, self.expand, self.project]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.dropout(swish(self.expand(self.norm(x))))
+        return self.dropout(self.project(h))
+
+
+class ConformerBlock(nn.Module):
+    def __init__(self, d_model: int, n_head: int, dropout: float = 0.1):
+        super().__init__()
+        self.ffn1 = FeedForwardModule(d_model, dropout)
+        self.attention = MultiHeadAttention(d_model, n_head, dropout)
+        self.conv = ConvolutionModule(d_model)
+        self.ffn2 = FeedForwardModule(d_model, dropout)
+        self.norm = nn.LayerNorm(d_model, eps=LAYERNORM_EPS)
+
+    def flax_order(self):
+        return [self.ffn1, self.attention, self.conv, self.ffn2, self.norm]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + 0.5 * self.ffn1(x)
+        x = x + self.attention(x)
+        x = x + self.conv(x)
+        x = x + 0.5 * self.ffn2(x)
+        return self.norm(x)
+
+
+class _BlockStackModel(nn.Module):
+    """Dense to d_model, dropout, a stack of blocks, mean over time, Dense:
+    the shape the conformer and the E-Branchformer share."""
+
+    block = None
+
+    def __init__(self, input_shape, d_model: int, n_head: int, n_layers: int,
+                 embedding_dim: int, dropout_prob: float):
+        super().__init__()
+        self.embed = nn.Linear(int(input_shape[-1]), d_model)
+        self.dropout = nn.Dropout(dropout_prob)
+        self.blocks = nn.ModuleList(
+            self.block(d_model, n_head, dropout_prob)
+            for _ in range(n_layers))
+        self.dense = nn.Linear(d_model, embedding_dim)
+
+    def flax_order(self):
+        return [self.embed, *self.blocks, self.dense]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.dropout(self.embed(x))
+        for block in self.blocks:
+            x = block(x)
+        return self.dense(x.mean(dim=1))
+
+
+class ConformerModel(_BlockStackModel):
+    block = ConformerBlock
+
+
+class EBranchformerBlock(nn.Module):
+    """Attention and convolution branches on the same input, merged by a
+    learned gate, then LayerNorm and a feed-forward residual."""
+
+    def __init__(self, d_model: int, n_head: int, dropout: float = 0.1):
+        super().__init__()
+        self.attention_norm = nn.LayerNorm(d_model, eps=LAYERNORM_EPS)
+        self.attention = MultiHeadAttention(d_model, n_head, dropout)
+        self.conv = ConvolutionModule(d_model)
+        self.gate = nn.Linear(d_model, d_model)
+        self.merge_norm = nn.LayerNorm(d_model, eps=LAYERNORM_EPS)
+        self.ffn = FeedForwardModule(d_model, dropout)
+
+    def flax_order(self):
+        return [self.attention_norm, self.attention, self.conv, self.gate,
+                self.merge_norm, self.ffn]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        attn_out = self.attention(self.attention_norm(x))
+        conv_out = self.conv(x)
+        gate = torch.sigmoid(self.gate(conv_out))
+        x = self.merge_norm(x + attn_out * gate + conv_out * (1.0 - gate))
+        return x + self.ffn(x)
+
+
+class EBranchformerModel(_BlockStackModel):
+    block = EBranchformerBlock
+
+
+class BcResNetBlock(nn.Module):
+    """Depthwise 3x3 (strided, `SAME`) + pointwise convolution, BatchNorm,
+    activation, plus a shortcut that is a strided 1x1 convolution +
+    BatchNorm when the stride or the width changes, over [B, C, T, F]."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 stride: tuple = (1, 1), activation: Activation = torch.relu):
+        super().__init__()
+        stride = tuple(stride)
+        self.shortcut = self.shortcut_norm = None
+        if stride != (1, 1) or in_channels != out_channels:
+            self.shortcut = SameConv2d(in_channels, out_channels, 1,
+                                       stride=stride, bias=False)
+            self.shortcut_norm = FlaxBatchNorm2d(out_channels)
+        self.depthwise = SameConv2d(in_channels, in_channels, 3,
+                                    stride=stride, groups=in_channels,
+                                    bias=False)
+        self.pointwise = nn.Conv2d(in_channels, out_channels, 1, bias=False)
+        self.norm = FlaxBatchNorm2d(out_channels)
+        self.activation = activation
+
+    def flax_order(self):
+        order = [self.depthwise, self.pointwise, self.norm]
+        if self.shortcut is not None:
+            order = [self.shortcut, self.shortcut_norm] + order
+        return order
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shortcut = x
+        if self.shortcut is not None:
+            shortcut = self.shortcut_norm(self.shortcut(x))
+        h = self.norm(self.pointwise(self.depthwise(x)))
+        return self.activation(h) + shortcut
+
+
+class BcResNetModel(nn.Module):
+    def __init__(self, input_shape, embedding_dim: int,
+                 dropout_prob: float = 0.2,
+                 activation: Activation = torch.relu):
+        super().__init__()
+        del input_shape     # every layer adapts to the map it is given
+        self.stem = SameConv2d(1, 32, 3, bias=False)
+        self.stem_norm = FlaxBatchNorm2d(32)
+        self.blocks = nn.ModuleList([
+            BcResNetBlock(32, 64, (2, 2), activation),
+            BcResNetBlock(64, 128, (2, 2), activation),
+            BcResNetBlock(128, 256, (2, 1), activation)])
+        self.dropout = nn.Dropout(dropout_prob)
+        self.dense = nn.Linear(256, embedding_dim)
+        self.activation = activation
+
+    def flax_order(self):
+        return [self.stem, self.stem_norm, *self.blocks, self.dense]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x[:, None]                              # [B, 1, T, F]
+        with no_tf32_convs():
+            h = self.activation(self.stem_norm(self.stem(h)))
+            h = F.max_pool2d(h, 2, 2)
+            for block in self.blocks:
+                h = block(h)
+        return self.dense(self.dropout(h.mean(dim=(2, 3))))

@@ -1,9 +1,11 @@
 """Model wrapper: backbone dispatch + the shared classifier head.
 
-The counterpart of `build_backbone`, `WakeWordModule` and `Model` in
-`nanowakeword_tpu/models/model.py`, for the backbones ported so far ("dnn",
-"crnn" and the stateful "streaming_gru"). The head is Dense(E -> E/2) ->
-act -> Dropout -> Dense(-> 1).
+The counterpart of `build_backbone`, `_build_custom`, `WakeWordModule` and
+`Model` in `nanowakeword_tpu/models/model.py`: `model_type` selects one of
+the thirteen backbones of models/architectures.py with the reference's
+config keys, or a user's `torch.nn.Module` loaded from a file path or a
+module name ("custom"). The head is Dense(E -> E/2) -> act -> Dropout ->
+Dense(-> 1).
 
 A fresh `Model` draws its weights with flax's initializers (lecun-normal
 kernels, zero biases, orthogonal GRU/LSTM recurrent kernels, unit norm
@@ -16,7 +18,11 @@ scratch starts from the reference's distribution. `variables` and
 from __future__ import annotations
 
 import collections
+import importlib
+import importlib.util
+import inspect
 import math
+import os
 from typing import Optional
 
 import torch
@@ -26,8 +32,9 @@ from nanowakeword_tpu_torch.convert import (flax_variables_from_state_dict,
                                             model_state_dict_from_flax)
 from nanowakeword_tpu_torch.models import architectures as A
 from nanowakeword_tpu_torch.models.fast_rnn import FastGRU, FastLSTM
+from nanowakeword_tpu_torch.utils.logger import print_info
 
-PORTED_MODEL_TYPES = ("dnn", "crnn", "streaming_gru")
+UNSTABLE_ARCHS = {"conformer", "e_branchformer", "crnn"}
 # flax's truncated normal keeps [-2, 2] of a unit normal, whose std is this
 _TRUNC_STD = 0.87962566103423978
 
@@ -35,11 +42,34 @@ _TRUNC_STD = 0.87962566103423978
 def build_backbone(model_type: str, config, input_shape, layer_dim: int,
                    n_blocks: int, dropout_prob: float, embedding_dim: int,
                    activation) -> tuple[nn.Module, bool]:
-    """Dispatch model_type -> (backbone module, is_stateful)."""
+    """Dispatch model_type -> (backbone module, is_stateful), with the
+    reference's config keys."""
     mt = model_type.lower()
     if mt == "dnn":
         return A.DNNModel(input_shape, layer_dim, n_blocks, embedding_dim,
                           dropout_prob, activation), False
+    if mt == "cnn":
+        return A.CNNModel(input_shape, embedding_dim, dropout_prob,
+                          activation), False
+    if mt == "lstm":
+        return A.LSTMModel(input_shape, layer_dim, n_blocks, embedding_dim,
+                           dropout_prob), False
+    if mt == "gru":
+        return A.GRUModel(input_shape, layer_dim, n_blocks, embedding_dim,
+                          dropout_prob), False
+    if mt == "rnn":
+        return A.RNNModel(input_shape, n_blocks, embedding_dim,
+                          dropout_prob), False
+    if mt == "streaming_gru":
+        return A.StreamingGRUModel(input_shape, layer_dim, n_blocks,
+                                   embedding_dim, dropout_prob), True
+    if mt == "transformer":
+        return A.TransformerModel(
+            input_shape,
+            d_model=int(config.get("transformer_d_model", 128)),
+            n_head=int(config.get("transformer_n_head", 4)),
+            n_layers=n_blocks, embedding_dim=embedding_dim,
+            dropout_prob=dropout_prob), False
     if mt == "crnn":
         return A.CRNNModel(
             input_shape,
@@ -48,13 +78,90 @@ def build_backbone(model_type: str, config, input_shape, layer_dim: int,
             rnn_hidden_size=layer_dim, n_rnn_layers=n_blocks,
             embedding_dim=embedding_dim, dropout_prob=dropout_prob,
             activation=activation), False
-    if mt == "streaming_gru":
-        return A.StreamingGRUModel(input_shape, layer_dim, n_blocks,
-                                   embedding_dim, dropout_prob), True
-    raise NotImplementedError(
-        f"model_type '{model_type}' is not ported to PyTorch yet (ported: "
-        f"{', '.join(PORTED_MODEL_TYPES)}); see ROADMAP.md for the rest of "
-        "the zoo")
+    if mt == "tcn":
+        return A.TCNModel(
+            input_shape,
+            num_channels=tuple(config.get("tcn_channels", [64, 64, 128])),
+            embedding_dim=embedding_dim,
+            kernel_size=int(config.get("tcn_kernel_size", 3)),
+            dropout_prob=dropout_prob), False
+    if mt == "quartznet":
+        qcfg = config.get("quartznet_config",
+                          [[256, 33, 1], [256, 33, 1], [512, 39, 1]])
+        return A.QuartzNetModel(
+            input_shape, quartznet_config=tuple(tuple(b) for b in qcfg),
+            embedding_dim=embedding_dim, dropout_prob=dropout_prob), False
+    if mt == "conformer":
+        return A.ConformerModel(
+            input_shape,
+            d_model=int(config.get("conformer_d_model", 144)),
+            n_head=int(config.get("conformer_n_head", 4)),
+            n_layers=n_blocks, embedding_dim=embedding_dim,
+            dropout_prob=dropout_prob), False
+    if mt == "e_branchformer":
+        return A.EBranchformerModel(
+            input_shape,
+            d_model=int(config.get("branchformer_d_model", 144)),
+            n_head=int(config.get("branchformer_n_head", 4)),
+            n_layers=n_blocks, embedding_dim=embedding_dim,
+            dropout_prob=dropout_prob), False
+    if mt == "bcresnet":
+        return A.BcResNetModel(input_shape, embedding_dim, dropout_prob,
+                               activation), False
+    if mt in {"custom", "custom_model"}:
+        return _build_custom(config, input_shape, embedding_dim, dropout_prob,
+                             activation), False
+    raise ValueError(f"Unsupported model_type: '{model_type}'.")
+
+
+def _build_custom(config, input_shape, embedding_dim, dropout_prob,
+                  activation) -> nn.Module:
+    """Load a user's `torch.nn.Module` from a file path or an importable
+    module name. It maps [B, T, F] features to a [B, embedding_dim]
+    vector; of `input_shape`, `embedding_dim`, `dropout_prob` and
+    `activation` it is given those its constructor names, then
+    `custom_model_config.params`."""
+    custom_cfg = config.get("custom_model_config", {})
+    module_path = custom_cfg.get("module_path")
+    class_name = custom_cfg.get("class_name")
+    if not module_path or not class_name:
+        raise ValueError(
+            "For model_type='custom', custom_model_config must contain "
+            "'module_path' and 'class_name'.")
+
+    abs_path = os.path.abspath(str(module_path))
+    if os.path.isfile(abs_path):
+        module_name = os.path.splitext(os.path.basename(abs_path))[0]
+        spec = importlib.util.spec_from_file_location(module_name, abs_path)
+        if spec is None or spec.loader is None:
+            raise ImportError(f"Unable to load custom module from '{abs_path}'")
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+    else:
+        module = importlib.import_module(str(module_path))
+
+    custom_class = getattr(module, str(class_name), None)
+    if custom_class is None:
+        raise AttributeError(
+            f"Custom model class '{class_name}' not found in '{module_path}'.")
+
+    params_cfg = custom_cfg.get("params", {}) or {}
+    if hasattr(params_cfg, "to_dict"):
+        params_cfg = params_cfg.to_dict()
+    base_kwargs = {
+        "input_shape": tuple(input_shape),
+        "embedding_dim": embedding_dim,
+        "dropout_prob": dropout_prob,
+        "activation": activation,
+    }
+    try:
+        sig = inspect.signature(custom_class)
+        supported = {k: v for k, v in base_kwargs.items()
+                     if k in sig.parameters}
+    except (ValueError, TypeError):
+        supported = base_kwargs
+    supported.update(params_cfg)
+    return custom_class(**supported)
 
 
 class WakeWordModule(nn.Module):
@@ -101,14 +208,24 @@ def _orthogonal_(w: torch.Tensor, g: torch.Generator) -> None:
 
 @torch.no_grad()
 def flax_init_(module: nn.Module, g: torch.Generator) -> None:
-    """Re-draw every weight of `module` with flax's default initializers."""
+    """Re-draw every weight of `module` with flax's default initializers:
+    lecun-normal kernels (fan-in over the kernel's input axes: the width for
+    a Dense or an attention projection, channels per group times taps for a
+    convolution), zero biases, unit norm scales, orthogonal recurrent
+    kernels. A custom backbone keeps its own initialization."""
     recurrent = {id(m.recurrent) for m in module.modules()
                  if isinstance(m, (FastGRU, FastLSTM))}
     # flax's GRUCell / OptimizedLSTMCell draw one orthogonal [H, H] kernel
     # per gate
     per_gate = {id(m.recurrent) for m in module.modules()
                 if isinstance(m, (A.UniGRULayer, A.UniLSTMLayer))}
+    custom = set()
+    backbone = getattr(module, "backbone", None)
+    if backbone is not None and not hasattr(backbone, "flax_order"):
+        custom = {id(m) for m in backbone.modules()}
     for m in module.modules():
+        if id(m) in custom:
+            continue
         if isinstance(m, nn.Linear):
             if id(m) in recurrent:
                 _orthogonal_(m.weight, g)
@@ -121,11 +238,11 @@ def flax_init_(module: nn.Module, g: torch.Generator) -> None:
                 m.bias.zero_()
         elif isinstance(m, A.UniGRULayer):
             m.bias_hn.zero_()
-        elif isinstance(m, nn.Conv2d):
-            fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
-            _lecun_normal_(m.weight, fan_in, g)
-            m.bias.zero_()
-        elif isinstance(m, (nn.LayerNorm, nn.BatchNorm2d)):
+        elif isinstance(m, (nn.Conv1d, nn.Conv2d)):
+            _lecun_normal_(m.weight, m.weight[0].numel(), g)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, (nn.LayerNorm, nn.BatchNorm1d, nn.BatchNorm2d)):
             m.weight.fill_(1.0)
             m.bias.zero_()
 
@@ -150,6 +267,12 @@ class Model:
         self.history = collections.defaultdict(list)
         self._build_args = {"layer_dim": layer_dim, "n_blocks": n_blocks,
                             "dropout_prob": dropout_prob}
+
+        if self.model_type in UNSTABLE_ARCHS:
+            print_info(
+                f"\n[WARNING] The '{model_type.upper()}' architecture is highly "
+                "sensitive to hyperparameters and may exhibit convergence "
+                "instability.\n")
 
         activation = A.get_activation(config.get("activation_function", "relu"))
         self.embedding_dim = int(config.get("embedding_dim", 64))
@@ -210,3 +333,24 @@ class Model:
 
     def n_params(self) -> int:
         return sum(p.numel() for p in self.module.parameters())
+
+    def summary(self) -> str:
+        """Name, input shape, parameter count and every parameter of the
+        flax layout with its shape; printed and returned."""
+        lines = [f"Model '{self.model_name}' ({self.model_type})",
+                 f"  input shape : {self.input_shape}",
+                 f"  parameters  : {self.n_params():,}"]
+
+        def walk(tree, path):
+            for k in sorted(tree):
+                if isinstance(tree[k], dict):
+                    walk(tree[k], path + [k])
+                else:
+                    name = "/".join(path + [k])
+                    lines.append(f"    {name:50s} "
+                                 f"{str(tuple(tree[k].shape)):>18s}")
+
+        walk(self.variables["params"], [])
+        out = "\n".join(lines)
+        print_info(out)
+        return out

@@ -16,7 +16,7 @@ the port samples exactly for every `sampling` value.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -120,14 +120,15 @@ def make_cached_train_loop(module, optimizer: Optimizer, *,
                            hardness_alpha: float = 0.05,
                            hardness_floor: float = 0.05,
                            sampling: str = "auto",
-                           compute_dtype: str = "float32"):
+                           compute_dtype: str = "float32",
+                           dropout_seed: Optional[int] = None):
     """-> run(hardness, generator, features, labels, pools) -> metrics
     [K, 6] on the device. `module`, `optimizer` and `hardness` are updated
     in place."""
     if sampling not in SAMPLING_MODES:
         raise ValueError("device_cache.sampling must be 'exact', 'approx' "
                          f"or 'auto', got {sampling!r}")
-    resolve_compute_dtype(compute_dtype)
+    cdt = resolve_compute_dtype(compute_dtype)
     total_loss = make_loss(loss_function, loss_bias, logit_reg_weight,
                            logit_reg_margin)
 
@@ -137,7 +138,8 @@ def make_cached_train_loop(module, optimizer: Optimizer, *,
         batch_x = features[idx]
         batch_y = labels[idx]
         total, grad_norm, logits = forward_backward(
-            module, optimizer, total_loss, batch_x, batch_y)
+            module, optimizer, total_loss, batch_x, batch_y, cdt,
+            dropout_seed)
         raw = losses.raw_bce(logits, batch_y)
         new = torch.clamp(hardness_alpha * raw
                           + (1 - hardness_alpha) * hardness[idx],

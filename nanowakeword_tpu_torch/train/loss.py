@@ -1,10 +1,10 @@
 """Losses: bias-weighted asymmetric BCE (+ per-example hardness signal),
-asymmetric focal loss, logit regularisation, and the raw BCE.
+asymmetric focal loss, logit regularisation, the raw BCE, and the
+distillation loss.
 
 The counterpart of `nanowakeword_tpu/train/loss.py`, as functions of torch
 tensors. Masked means `sum(term * mask) / max(sum(mask), 1)` stand in for
-boolean indexing, as there. The distillation loss waits for distillation
-(ROADMAP.md).
+boolean indexing, as there.
 """
 
 from __future__ import annotations
@@ -74,6 +74,20 @@ def raw_bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Unweighted per-example BCE-with-logits, the hardness signal."""
     return (torch.clamp(logits, min=0.0) - logits * labels
             + torch.log1p(torch.exp(-logits.abs())))
+
+
+def distill_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
+                 labels: torch.Tensor, temperature: float,
+                 alpha: float) -> torch.Tensor:
+    """alpha * T^2 * binaryKL(teacher_soft, student_soft)
+    + (1 - alpha) * BCE(student, labels)."""
+    t_soft = torch.sigmoid(teacher_logits / temperature)
+    s_soft = torch.sigmoid(student_logits / temperature)
+    soft = -(t_soft * torch.log(s_soft + EPS)
+             + (1.0 - t_soft) * torch.log(1.0 - s_soft + EPS)).mean()
+    soft = soft * temperature ** 2
+    hard = raw_bce(student_logits, labels).mean()
+    return alpha * soft + (1.0 - alpha) * hard
 
 
 LOSS_FUNCTIONS = {

@@ -4,13 +4,22 @@ packed metrics; and the eval step.
 The counterpart of `nanowakeword_tpu/train/step.py`. torch modules carry
 their own state, so the step mutates the module (weights, BatchNorm running
 statistics) and the optimizer in place instead of returning a new state.
-Dropout draws from torch's generator of the module's device, which the
-trainer seeds.
+
+Dropout draws from the default generator of the module's device. With a
+`dropout_seed` the step seeds that generator from (seed, step count) before
+every forward, as the reference folds the step into its key: the masks are
+then a function of the step alone, so a run resumed from a checkpoint draws
+what the uninterrupted run drew, whatever else used the generator.
+
+`compute_dtype: bfloat16` runs the forward and backward on bf16 copies of
+the parameters and features; the float32 masters receive the gradient
+through the cast, and the optimizer moments, the loss and BatchNorm's
+running statistics stay float32.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -49,19 +58,77 @@ class StepMetrics(NamedTuple):
         """One device -> host copy; the result holds a CPU tensor."""
         return StepMetrics(self.packed.cpu())
 
+    def start_fetch(self) -> "PendingMetrics":
+        """Start the one device -> host copy without waiting for it: on the
+        card into a pinned buffer, behind an event on the current stream."""
+        if self.packed.device.type != "cuda":
+            return PendingMetrics(self.packed.detach(), None)
+        host = torch.empty(self.packed.shape, dtype=self.packed.dtype,
+                           pin_memory=True)
+        host.copy_(self.packed, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return PendingMetrics(host, event)
 
-def resolve_compute_dtype(compute_dtype) -> None:
-    """Accept float32; bfloat16 training is not ported yet."""
+
+class PendingMetrics(NamedTuple):
+    """A packed metrics vector on its way to the host."""
+
+    host: torch.Tensor
+    event: Optional["torch.cuda.Event"]
+
+    def result(self) -> "HostMetrics":
+        if self.event is not None:
+            self.event.synchronize()
+        return HostMetrics(self.host.numpy())
+
+
+class HostMetrics(NamedTuple):
+    packed: np.ndarray
+
+    @property
+    def loss(self) -> float:
+        return float(self.packed[0])
+
+    @property
+    def grad_norm(self) -> float:
+        return float(self.packed[1])
+
+    @property
+    def per_example_bce(self) -> np.ndarray:
+        b = (self.packed.shape[0] - 2) // 2
+        return self.packed[2:2 + b]
+
+    @property
+    def logits(self) -> np.ndarray:
+        b = (self.packed.shape[0] - 2) // 2
+        return self.packed[2 + b:]
+
+
+def resolve_compute_dtype(compute_dtype) -> Optional[torch.dtype]:
+    """A config `compute_dtype` -> the dtype the forward is cast to:
+    torch.bfloat16 for "bfloat16"/"bf16", None for full precision
+    ("float32"/"f32"/"fp32"). Anything else is a config error: a silent
+    fallback would let a "float16" typo train in full precision."""
     name = str(compute_dtype).lower()
+    if name in ("bfloat16", "bf16"):
+        return torch.bfloat16
     if name in ("float32", "f32", "fp32"):
         return None
-    if name in ("bfloat16", "bf16"):
-        raise NotImplementedError(
-            "compute_dtype 'bfloat16' is not ported to PyTorch yet: bf16 "
-            "training is in ROADMAP.md's 'Still to port' queue; use "
-            "'float32'")
     raise ValueError("training.compute_dtype must be 'float32' or "
                      f"'bfloat16', got {compute_dtype!r}")
+
+
+def seed_dropout(device: torch.device, seed: int, step: int) -> None:
+    """Seed the default generator of `device`, which dropout draws from,
+    as a function of (seed, step)."""
+    value = (int(seed) * 1_000_003 + int(step)) % (1 << 63)
+    if device.type == "cuda":
+        index = (device.index if device.index is not None
+                 else torch.cuda.current_device())
+        torch.cuda.default_generators[index].manual_seed(value)
+    else:
+        torch.default_generator.manual_seed(value)
 
 
 def make_loss(loss_function: str = "bias_weighted", loss_bias: float = 0.75,
@@ -87,13 +154,27 @@ def make_loss(loss_function: str = "bias_weighted", loss_bias: float = 0.75,
 
 
 def forward_backward(module: nn.Module, optimizer: Optimizer, total_loss,
-                     features: torch.Tensor, labels: torch.Tensor):
+                     features: torch.Tensor, labels: torch.Tensor,
+                     compute_dtype: Optional[torch.dtype] = None,
+                     dropout_seed: Optional[int] = None):
     """Training-mode forward, loss, gradients and one optimizer update.
     -> (loss, grad norm before the clip, logits [B]), all detached. The
-    backward convolutions run without TF32 too."""
+    backward convolutions run without TF32 too. `optimizer.params` are the
+    module's parameters."""
     module.train()
+    if dropout_seed is not None:
+        seed_dropout(features.device, dropout_seed, optimizer.count)
     with no_tf32_convs():
-        logits = module(features).reshape(-1).float()
+        if compute_dtype is None:
+            logits = module(features)
+        else:
+            # the module's buffers (BatchNorm statistics) are not passed,
+            # so they stay the float32 tensors the module holds
+            cast = {name: p.to(compute_dtype)
+                    for name, p in module.named_parameters()}
+            logits = torch.func.functional_call(
+                module, cast, (features.to(compute_dtype),))
+        logits = logits.reshape(-1).float()
         total = total_loss(logits, labels)
         grads = torch.autograd.grad(total, optimizer.params)
     grad_norm = optimizer.step(grads)
@@ -101,15 +182,17 @@ def forward_backward(module: nn.Module, optimizer: Optimizer, total_loss,
 
 
 def make_train_step(module: nn.Module, optimizer: Optimizer, *,
-                    compute_dtype: str = "float32", **loss_kwargs):
+                    compute_dtype: str = "float32",
+                    dropout_seed: Optional[int] = None, **loss_kwargs):
     """(features [B, T, F], labels [B]) -> StepMetrics; updates `module`
     and `optimizer` in place."""
-    resolve_compute_dtype(compute_dtype)
+    cdt = resolve_compute_dtype(compute_dtype)
     total_loss = make_loss(**loss_kwargs)
 
     def step(features, labels) -> StepMetrics:
         total, grad_norm, logits = forward_backward(
-            module, optimizer, total_loss, features, labels)
+            module, optimizer, total_loss, features, labels, cdt,
+            dropout_seed)
         raw = losses.raw_bce(logits, labels)
         return StepMetrics(torch.cat([total.reshape(1),
                                       grad_norm.reshape(1).float(), raw,

@@ -1,14 +1,16 @@
-"""Pipeline orchestrator: config -> feature generation (-t) -> device-cached
-training (-T) -> `.nww` export, on one torch device.
+"""Pipeline orchestrator: config -> feature generation (-t) -> training (-T)
+-> `.nww` export -> distillation of the lite gate (-d), on one torch device.
 
 The counterpart of `nanowakeword_tpu/trainer.py` for the stages the port
 has: hardware auto-config merge, the project directory layout
 (`features/`, `training_artifacts/`, `model/`), the manifest-driven
-transform stage, dataset/sampler construction, training in device-cache
-mode, and the artifact export. `run_pipeline` takes the config as a dict;
-the command line (`train`) wraps it and is the only place that reads YAML.
-Clip generation (-G), distillation (-d), end-to-end training, ONNX export
-and the training journal are not ported yet (ROADMAP.md).
+transform stage, dataset/sampler construction, training (the host loop by
+default, the device-cached loop with `device_cache: {enabled: true}`), the
+artifact export, distillation (after training, where `distillation.enabled`
+defaults to true, or standalone from the exported `.nww`), and the training
+journal. `run_pipeline` takes the config as a dict; the command line
+(`train`) wraps it and is the only place that reads YAML. Clip generation
+(-G), end-to-end training and ONNX export are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -25,8 +27,7 @@ from nanowakeword_tpu_torch.data.dataset import (AdaptiveLossAwareDataset,
                                                  DynamicClassAwareSampler,
                                                  ValidationDataset)
 from nanowakeword_tpu_torch.utils.logger import (print_banner, print_info,
-                                                 print_step_header,
-                                                 print_warning)
+                                                 print_step_header)
 
 SEED = 10
 
@@ -66,14 +67,27 @@ def _validation_data(full_manifest):
     return vd
 
 
+def _manifests(config):
+    """-> (the whole feature manifest, its training part)."""
+    full_manifest = config.get("feature_manifest", {})
+    if hasattr(full_manifest, "to_dict"):
+        full_manifest = full_manifest.to_dict()
+    return full_manifest, {cat: paths for cat, paths in full_manifest.items()
+                           if not cat.endswith("_val")}
+
+
 def train_stage(config, model_name: str, artifacts_dir: str,
-                model_save_dir: str, device, resume: Optional[str] = None):
-    """-T: build the data, train a Model in device-cache mode, export the
-    `.nww` artifact (with the bundled encoder).
-    -> (trained model, its dataset with the final hardness, artifact path)."""
+                model_save_dir: str, device, resume: Optional[str] = None,
+                distill: bool = False) -> dict:
+    """-T: build the data, train a Model, export the `.nww` artifact (with
+    the bundled encoder), then distill and export the lite gate unless
+    `distillation.enabled` is false and `distill` was not asked for.
+    -> {"model", "dataset" (with the final hardness), "artifact",
+    "lite_artifact" (path or None)}."""
     from nanowakeword_tpu_torch.data.features import \
         default_encoder_variables
-    from nanowakeword_tpu_torch.export.artifact import export_model
+    from nanowakeword_tpu_torch.export.artifact import (check_weights_dtype,
+                                                        export_model)
     from nanowakeword_tpu_torch.models.model import Model
     from nanowakeword_tpu_torch.train.trainer import Trainer
 
@@ -81,11 +95,11 @@ def train_stage(config, model_name: str, artifacts_dir: str,
     if e2e_cfg and e2e_cfg.get("enabled", False):
         raise NotImplementedError("end-to-end training is not ported to "
                                   "PyTorch yet (ROADMAP.md)")
-    full_manifest = config.get("feature_manifest", {})
-    if hasattr(full_manifest, "to_dict"):
-        full_manifest = full_manifest.to_dict()
-    manifest = {cat: paths for cat, paths in full_manifest.items()
-                if not cat.endswith("_val")}
+    dist_cfg = config.get("distillation", {})
+    should_distill = bool(dist_cfg.get("enabled", True)) or distill
+    if should_distill:
+        check_weights_dtype(dist_cfg)   # fail BEFORE any training runs
+    full_manifest, manifest = _manifests(config)
     dataset, sampler = _build_training_data(config, manifest)
     val_dataset = _validation_data(full_manifest)
 
@@ -105,22 +119,71 @@ def train_stage(config, model_name: str, artifacts_dir: str,
         X_train=(dataset, sampler), X_val=val_dataset,
         steps=int(config.get("steps", 15000)), debug_path=artifacts_dir,
         resume_from_dir=resume)
-    path = export_model(best, input_shape, config, model_name,
-                        model_save_dir,
-                        encoder_variables=default_encoder_variables())
-    dist_cfg = config.get("distillation", {})
-    if dist_cfg and dist_cfg.get("enabled", True):
-        print_warning("Distillation of a lite gate is not ported to PyTorch "
-                      "yet (ROADMAP.md); skipped.")
-    return best, dataset, path
+    encoder_vars = default_encoder_variables()
+    out = {"model": best, "dataset": dataset, "lite_artifact": None,
+           "artifact": export_model(best, input_shape, config, model_name,
+                                    model_save_dir,
+                                    encoder_variables=encoder_vars)}
+    if should_distill:
+        print_step_header("Distillation: Building Lite Model")
+        from nanowakeword_tpu_torch.train.distill import distill_model
+        student = distill_model(teacher=best, X_train=(dataset, sampler),
+                                config=config, input_shape=input_shape)
+        out["lite_artifact"] = export_model(
+            student, input_shape, config, model_name + "_lite",
+            model_save_dir, encoder_variables=encoder_vars,
+            weights_dtype=dist_cfg.get("weights_dtype"))
+        print_info(f"Lite model saved alongside main model in: "
+                   f"{model_save_dir}")
+    return out
+
+
+def distill_stage(config, model_name: str, model_save_dir: str,
+                  device) -> str:
+    """-d without -T: distill the lite gate from the `.nww` that an earlier
+    -T exported. -> the lite artifact's path."""
+    from nanowakeword_tpu_torch.export.artifact import EXTENSION
+    from nanowakeword_tpu_torch.train.distill import distill_from_artifact
+
+    print_step_header("Standalone Distillation: Building Lite Model from "
+                      "Existing Artifact")
+    artifact_path = os.path.join(model_save_dir, model_name + EXTENSION)
+    if not os.path.exists(artifact_path):
+        raise FileNotFoundError(
+            f"No trained model artifact found at '{artifact_path}'. Train "
+            "the model first with -T, then run -d standalone.")
+    _, manifest = _manifests(config)
+    if not manifest:
+        raise ValueError("No feature_manifest entries found in config. "
+                         "Cannot run standalone distillation.")
+    dataset, sampler = _build_training_data(config, manifest)
+    return distill_from_artifact(
+        artifact_path=artifact_path, X_train=(dataset, sampler),
+        config=config, input_shape=dataset[0][0].shape,
+        output_dir=model_save_dir, model_name=model_name, device=device)
+
+
+def _write_journal(config, base_output_dir: str, model_name: str, model,
+                   training_minutes: float) -> None:
+    from nanowakeword_tpu_torch.utils.journal import update_training_journal
+    report = model.history.get("final_report") or {}
+    update_training_journal(
+        base_output_dir=base_output_dir, model_name=model_name,
+        metrics={
+            "Stable Loss": report.get("Average Stable Loss", "N/A"),
+            "Avg. Pos Conf": report.get("Avg. Positive Score (Logit)", "N/A"),
+            "Avg. Neg Conf": report.get("Avg. Negative Score (Logit)", "N/A"),
+            "Train Time": f"{training_minutes:.1f}"},
+        current_config=config.report())
 
 
 def run_pipeline(user_config: dict, *, transform_clips: bool = False,
-                 train_model: bool = False, overwrite: bool = False,
-                 resume: Optional[str] = None, device="cuda") -> dict:
+                 train_model: bool = False, distill: bool = False,
+                 overwrite: bool = False, resume: Optional[str] = None,
+                 device="cuda") -> dict:
     """Run the requested stages for a config dict on `device`.
-    -> {"project_dir", "feature_dir", and after training "artifact" (path),
-    "model" and "dataset"}."""
+    -> {"project_dir", "feature_dir", "artifact" and "lite_artifact" (paths
+    or None), and after training "model" and "dataset"}."""
     import torch
 
     print_banner()
@@ -136,8 +199,9 @@ def run_pipeline(user_config: dict, *, transform_clips: bool = False,
 
     model_name = config.get("model_name",
                             f"nww_{config.get('model_type', 'dnn')}")
-    project_dir = os.path.join(os.path.abspath(
-        base_config.get("output_dir", "./trained_models")), model_name)
+    base_output_dir = os.path.abspath(
+        base_config.get("output_dir", "./trained_models"))
+    project_dir = os.path.join(base_output_dir, model_name)
     feature_dir = os.path.join(project_dir, "features")
     artifacts_dir = os.path.join(project_dir, "training_artifacts")
     model_save_dir = os.path.join(project_dir, "model")
@@ -153,13 +217,20 @@ def run_pipeline(user_config: dict, *, transform_clips: bool = False,
                       feature_dir, device=device)
 
     out = {"project_dir": project_dir, "feature_dir": feature_dir,
-           "artifact": None}
+           "artifact": None, "lite_artifact": None}
+    distill = distill or bool(config.get("distill", False))
     if train_model or config.get("train_model", False):
         start = time.time()
-        out["model"], out["dataset"], out["artifact"] = train_stage(
-            config, model_name, artifacts_dir, model_save_dir, device, resume)
-        print_info(f"Training and export took "
-                   f"{(time.time() - start) / 60:.1f} min.")
+        out.update(train_stage(config, model_name, artifacts_dir,
+                               model_save_dir, device, resume, distill))
+        minutes = (time.time() - start) / 60
+        print_info(f"Training and export took {minutes:.1f} min.")
+        if config.get("enable_journaling", True):
+            _write_journal(config, base_output_dir, model_name, out["model"],
+                           minutes)
+    elif distill:
+        out["lite_artifact"] = distill_stage(config, model_name,
+                                             model_save_dir, device)
     return out
 
 
@@ -173,8 +244,11 @@ def _build_parser():
     parser.add_argument("-t", "--transform_clips", action="store_true",
                         help="Augment clips and extract features (.npy).")
     parser.add_argument("-T", "--train_model", action="store_true",
-                        help="Train the wake word model (device-cache mode) "
-                             "and export it as .nww.")
+                        help="Train the wake word model and export it as "
+                             ".nww.")
+    parser.add_argument("-d", "--distill", action="store_true",
+                        help="Distill a lite gate model (with -T or "
+                             "standalone from the exported .nww).")
     parser.add_argument("--overwrite", action="store_true",
                         help="Overwrite existing feature files.")
     parser.add_argument("--resume", type=str, default=None, metavar="PATH",
@@ -190,7 +264,7 @@ def train(cli_args=None) -> dict:
     with open(args.config_path, "r", encoding="utf-8") as f:
         user_config = yaml.safe_load(f.read())
     return run_pipeline(user_config, transform_clips=args.transform_clips,
-                        train_model=args.train_model,
+                        train_model=args.train_model, distill=args.distill,
                         overwrite=args.overwrite, resume=args.resume,
                         device=args.device)
 

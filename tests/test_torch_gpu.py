@@ -311,3 +311,91 @@ def test_augment_batch_launches_the_mix_kernel(rng, cuda):
     assert mix_cuda.launches == before + 1
     assert out.dtype == torch.int16 and out.shape == (b, n)
     assert out.device.type == "cuda" and out.abs().max() > 0
+
+
+# -- the model zoo, the host loop and bf16 training on the card ----------------
+
+ZOO = ["cnn", "lstm", "gru", "rnn", "transformer", "tcn", "quartznet",
+       "conformer", "e_branchformer", "bcresnet"]
+ZOO_TOL = 1e-4      # f32 logits of one family, card vs CPU
+
+
+def _zoo_model(model_type, device, dropout=0.0, **cfg):
+    from nanowakeword_tpu_torch.models.model import Model
+    config = {"embedding_dim": 32, "transformer_d_model": 32,
+              "transformer_n_head": 2, "conformer_d_model": 32,
+              "conformer_n_head": 2, "branchformer_d_model": 32,
+              "branchformer_n_head": 2, "tcn_channels": [16, 32],
+              "quartznet_config": [[32, 9, 1], [64, 8, 1]], **cfg}
+    return Model(config=config, model_name="t", model_type=model_type,
+                 layer_dim=16, n_blocks=2, dropout_prob=dropout, seed=3,
+                 device=device)
+
+
+@pytest.mark.parametrize("model_type", ZOO)
+def test_zoo_forward_card_matches_cpu(rng, cuda, model_type):
+    x = rng.normal(0, 1, (8, 16, 96)).astype(np.float32)
+    on_card = _zoo_model(model_type, cuda)(x).cpu().numpy()
+    on_cpu = _zoo_model(model_type, "cpu")(x).numpy()
+    assert on_card.shape == (8, 1) and np.isfinite(on_card).all()
+    np.testing.assert_allclose(on_card, on_cpu, rtol=0, atol=ZOO_TOL)
+
+
+def _training_data(tmp_path):
+    from nanowakeword_tpu_torch.data.dataset import (
+        AdaptiveLossAwareDataset, DynamicClassAwareSampler)
+    rng = np.random.default_rng(0)
+    pos_p, neg_p = tmp_path / "pos.npy", tmp_path / "neg.npy"
+    np.save(pos_p, rng.normal(size=(60, 16, 96)).astype(np.float32) + 1.0)
+    np.save(neg_p, rng.normal(size=(120, 16, 96)).astype(np.float32))
+    manifest = {"targets": {"t": str(pos_p)}, "negatives": {"n": str(neg_p)}}
+    dataset = AdaptiveLossAwareDataset(manifest)
+    return dataset, DynamicClassAwareSampler(dataset, {"t": 8, "n": 16},
+                                             manifest)
+
+
+def test_host_loop_pinned_side_stream_copies_match_synchronous(cuda,
+                                                               tmp_path):
+    """The host loop uploads each batch from pinned memory on a stream of
+    its own and the step waits on the copy's event: the first 10 losses
+    equal those of the same run with synchronous copies."""
+    from nanowakeword_tpu_torch.train.trainer import Trainer
+    cfg = {"learning_rate_max": 2e-3, "steps": 10,
+           "early_stopping_patience": 0}
+    losses = []
+    for async_copies in (True, False):
+        dataset, sampler = _training_data(tmp_path)
+        trainer = Trainer(_zoo_model("gru", cuda, dropout=0.1), cfg)
+        trainer.async_copies = async_copies
+        trainer.train_model((dataset, sampler), None, 10, str(tmp_path))
+        losses.append(trainer.history["loss"])
+    assert len(losses[0]) == 10 and np.isfinite(losses[0]).all()
+    assert losses[0] == losses[1]
+
+
+def test_bf16_step_invariants_on_the_card(rng, cuda):
+    """compute_dtype bfloat16 on the card: float32 masters, moments,
+    BatchNorm statistics and metrics; the loss close to the float32
+    step's."""
+    from nanowakeword_tpu_torch.train.optim import Optimizer
+    from nanowakeword_tpu_torch.train.step import make_train_step
+    x = torch.from_numpy(rng.normal(0, 1, (32, 16, 96)).astype(
+        np.float32)).to(cuda)
+    y = (torch.arange(32, device=cuda) % 4 == 0).float()
+    losses = {}
+    for dtype in ("float32", "bfloat16"):
+        model = _zoo_model("quartznet", cuda).train()
+        opt = Optimizer(list(model.module.parameters()), {}, 10)
+        metrics = make_train_step(model.module, opt,
+                                  compute_dtype=dtype)(x, y)
+        assert metrics.packed.dtype == torch.float32
+        losses[dtype] = metrics.loss.item()
+        for k, v in model.module.state_dict().items():
+            if torch.is_floating_point(v):
+                assert v.dtype == torch.float32, k
+        for moments in opt.state.values():
+            assert all(t.dtype == torch.float32 for t in moments)
+        norm = model.module.backbone.blocks[0].norm
+        assert norm.running_mean.abs().sum() > 0
+    assert abs(losses["bfloat16"] - losses["float32"]) < 2e-2 * abs(
+        losses["float32"])

@@ -534,9 +534,12 @@ def test_cli_training_flags_reach_the_trainer(monkeypatch, tmp_path):
     assert seen["argv"] == ["-c", str(cfg), "--device", "cuda", "-T"]
 
 
-@pytest.mark.parametrize("flag", ["-G", "-d"])
-def test_cli_unported_stages_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+@pytest.mark.parametrize("flag,error,match", [
+    pytest.param("-G", NotImplementedError, "ROADMAP.md", id="-G"),
+    # distillation is ported: -d reaches the pipeline, which opens the config
+    pytest.param("-d", FileNotFoundError, "cfg.yaml", id="-d")])
+def test_cli_unported_stages_raise(flag, error, match):
+    with pytest.raises(error, match=match):
         cli.main(["-c", "cfg.yaml", flag])
 
 

@@ -205,6 +205,10 @@ def test_nww_weights_dtypes_load_like_jax(tmp_path, weights_dtype, features,
 
 
 def test_unported_model_type_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_backbone("transformer", {}, (16, 96), 32, 1, 0.0, 16,
-                       torch.relu)
+    """Every model type of the reference is built; an unknown one raises
+    ValueError, as the reference does."""
+    backbone, stateful = build_backbone("transformer", {}, (16, 96), 32, 1,
+                                        0.0, 16, torch.relu)
+    assert backbone(torch.zeros(2, 16, 96)).shape == (2, 16) and not stateful
+    with pytest.raises(ValueError, match="Unsupported model_type"):
+        build_backbone("resnet99", {}, (16, 96), 32, 1, 0.0, 16, torch.relu)

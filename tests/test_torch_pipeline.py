@@ -156,6 +156,9 @@ def test_training_modules_load_no_jax():
     code = ("import sys\n"
             "import nanowakeword_tpu_torch.trainer\n"
             "import nanowakeword_tpu_torch.train.trainer\n"
+            "import nanowakeword_tpu_torch.train.distill\n"
+            "import nanowakeword_tpu_torch.utils.journal\n"
+            "import nanowakeword_tpu_torch.tools.profile_train_step\n"
             "import nanowakeword_tpu_torch.data.transform_clips\n"
             "import nanowakeword_tpu_torch.export.artifact\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -309,11 +309,91 @@ def test_training_steps_match_jax(model_type, cfg, opt):
                             _np_tree(jstate.batch_stats), STEP_TOL)
 
 
-def test_bfloat16_training_is_not_ported_yet():
+# -- bf16 compute ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("model_type,cfg", [("crnn", CRNN_CFG),
+                                            ("dnn", DNN_CFG)])
+def test_bf16_step_matches_jax_bf16_step(model_type, cfg):
+    """One SGD step with compute_dtype bfloat16 in both packages: the loss
+    within 2e-2 relative and the logits within 5e-2 (bf16 keeps 8 bits, and
+    the two frameworks round intermediate sums at different points), and
+    the dtype invariants: float32 masters, moments, BatchNorm statistics,
+    loss and metrics."""
+    train_cfg = {"optimizer_type": "sgd", "learning_rate_max": 1e-2,
+                 "lr_scheduler_type": "cosine", "learning_rate_base": 1e-4}
+    jm = _jax_model(model_type, cfg)
+    variables = _np_tree(jm.variables)
+    tx = build_optimizer(train_cfg, total_steps=50)
+    jstate = create_train_state(jm.module, jax.tree_util.tree_map(
+        jnp.asarray, variables), tx)
+    jstep = jax_train_step(jm.module, tx, donate=False,
+                           compute_dtype="bfloat16")
+    model = _port_model(model_type, cfg, variables).train()
+    optimizer = Optimizer(list(model.module.parameters()), train_cfg, 50)
+    step = make_train_step(model.module, optimizer, compute_dtype="bf16")
+    x, y = _features(6), _labels()
+    before = {k: v.clone() for k, v in model.module.state_dict().items()}
+    jstate, jm_metrics = jstep(jstate, jnp.asarray(x), jnp.asarray(y))
+    metrics = step(T(x), T(y))
+    ref = np.asarray(jm_metrics.packed)
+    assert metrics.packed.dtype == torch.float32
+    np.testing.assert_allclose(metrics.loss.item(), ref[0], rtol=2e-2)
+    np.testing.assert_allclose(metrics.logits.numpy(), ref[2 + len(y):],
+                               rtol=0, atol=5e-2)
+    moved = 0
+    for k, v in model.module.state_dict().items():
+        if torch.is_floating_point(v):
+            assert v.dtype == torch.float32, k
+            moved += int(not torch.equal(v, before[k]))
+    assert moved > 0.8 * sum(torch.is_floating_point(v)
+                             for v in before.values())
+    for moments in optimizer.state.values():
+        assert all(t.dtype == torch.float32 for t in moments)
+    # the masters moved by float32 amounts: the update is not bf16-rounded
+    w = model.module.head_out.weight
+    assert not torch.equal(w, w.to(torch.bfloat16).float())
+    if model_type == "crnn":
+        _assert_trees_close(model.variables["batch_stats"],
+                            _np_tree(jstate.batch_stats), 2e-3)
+
+
+def test_cached_loop_bf16_keeps_masters_and_bn_stats_f32(separable):
+    """The device-cached loop with compute_dtype bfloat16: float32 masters
+    and a full-precision BatchNorm running-statistic EMA. One EMA step from
+    1000.3 with O(1) batch statistics must start from the float32 value
+    (0.99 * 1000.3), not from bf16(1000.3) = 1000."""
+    dataset, sampler = separable
+    cached = build_cached_data(dataset, sampler.batch_composition,
+                               sampler.feature_manifests, "cpu")
+    model = _port_model("crnn", CRNN_CFG).train()
+    with torch.no_grad():
+        for norm in model.module.backbone.norms:
+            norm.running_mean.fill_(1000.3)
+            norm.running_var.fill_(1000.3)
+    opt = Optimizer(list(model.module.parameters()), CACHE_CFG, 60)
+    loop = make_cached_train_loop(model.module, opt, quotas=cached.quotas,
+                                  replace=cached.replace, k_steps=1,
+                                  compute_dtype="bfloat16")
+    m = loop(cached.hardness, torch.Generator().manual_seed(7),
+             cached.features, cached.labels, cached.pools)
+    assert m.dtype == torch.float32 and torch.isfinite(m).all()
+    for p in model.module.parameters():
+        assert p.dtype == torch.float32
+    for norm in model.module.backbone.norms:
+        for stat in (norm.running_mean, norm.running_var):
+            assert stat.dtype == torch.float32
+            assert (stat > 990.2).all() and (stat < 990.5).all(), stat
+
+
+@pytest.mark.parametrize("name", ["float16", "fp16", "half", "tf32"])
+def test_unknown_compute_dtype_raises(name):
     model = _port_model("dnn", DNN_CFG)
     opt = Optimizer(list(model.module.parameters()), {}, 10)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_train_step(model.module, opt, compute_dtype="bfloat16")
+    with pytest.raises(ValueError, match="compute_dtype"):
+        make_train_step(model.module, opt, compute_dtype=name)
+    with pytest.raises(ValueError, match="compute_dtype"):
+        Trainer(model, {"compute_dtype": name})
 
 
 # -- the device-cached loop and the trainer -------------------------------------------------
@@ -414,10 +494,55 @@ def test_pickle_checkpoint_round_trip(separable, tmp_path):
     assert other.history["loss"] == trainer.history["loss"]
 
 
-def test_host_loop_is_not_ported_yet(separable, tmp_path):
-    trainer = Trainer(_port_model("dnn", DNN_CFG), {"steps": 10})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        trainer.train_model(separable, None, 10, str(tmp_path))
+def test_resume_device_cached_is_bitwise_continuation(separable, tmp_path):
+    """40 steps straight against 20 steps, a new Trainer, --resume and 20
+    more, with dropout 0.3: weights, optimizer moments, hardness and the
+    loss history are equal bit for bit. Dropout's masks are a function of
+    (seed, step), so the resumed run draws what the straight run drew."""
+    import shutil
+    dataset, sampler = separable
+    cfg = dict(CACHE_CFG, steps=40,
+               checkpointing={"enabled": True, "interval_steps": 20,
+                              "limit": 5})
+
+    def trainer():
+        return Trainer(_port_model("dnn", DNN_CFG, dropout=0.3), cfg)
+
+    run_a = tmp_path / "a" / "training_artifacts"
+    t_a = trainer()
+    t_a.train_model((dataset, sampler), None, 40, str(run_a))
+    hardness_a = dataset.sample_hardness.copy()
+    mid = run_a / "checkpoints" / "checkpoint_step_20.pkl"
+    assert mid.exists()
+    run_b = tmp_path / "b" / "training_artifacts"
+    (run_b / "checkpoints").mkdir(parents=True)
+    shutil.copy(mid, run_b / "checkpoints" / mid.name)
+
+    dataset.sample_hardness[:] = 1.0    # must come from the checkpoint
+    torch.manual_seed(12345)            # whatever else the process drew
+    t_b = trainer()
+    steps = t_b.train_model((dataset, sampler), None, 40, str(run_b),
+                            resume_from_dir=str(tmp_path / "b"))
+    assert steps == 40
+    assert t_b.history["loss"] == t_a.history["loss"]
+    assert len(t_b.history["loss"]) == 40
+    sd_a, sd_b = (t.model.module.state_dict() for t in (t_a, t_b))
+    for k, v in sd_a.items():
+        assert torch.equal(sd_b[k], v), k
+    for name, moments in t_a.optimizer.state.items():
+        for a, b in zip(moments, t_b.optimizer.state[name]):
+            assert torch.equal(a, b), name
+    assert t_b.optimizer.count == t_a.optimizer.count == 40
+    np.testing.assert_array_equal(dataset.sample_hardness, hardness_a)
+
+
+def test_orbax_backend_raises(separable, tmp_path):
+    """orbax is a JAX library: the port has pickle checkpoints only."""
+    cfg = dict(CACHE_CFG, checkpointing={"enabled": True,
+                                         "backend": "orbax"})
+    trainer = Trainer(_port_model("dnn", DNN_CFG), cfg)
+    with pytest.raises(NotImplementedError, match="orbax"):
+        trainer.save_checkpoint(str(tmp_path), 1, separable[1])
 
 
 # -- the .nww writer ------------------------------------------------------------------------
