@@ -23,10 +23,15 @@ through `save_nww` and the interpreter, the host training loop (`-T` without
 `device_cache`) for the shipped CRNN and a conformer with a checkpoint and a
 resumed run held against the straight run, bf16 training, and distillation
 of the lite gate from the shipped artifact, which the cascade then serves.
-It times both kernels against their plain versions, batch scoring, streaming
-latency (eager and replayed), the server's requests per second, the
-transform stage, training steps of both loops in float32 and bf16, each
-family's forward and distillation steps.
+Last, the campaign from text: clip generation (`-G`) and `-t` on a task
+list in the shipped campaign's schema, end-to-end training of the bundled
+encoder and the shipped CRNN from those WAVs with the mel kernel in every
+step's forward, one such step on the card against the CPU, and the result
+served on the card against the CPU. It times both kernels against their
+plain versions, batch scoring, streaming latency (eager and replayed), the
+server's requests per second, the transform stage, training steps of both
+loops in float32 and bf16, each family's forward, distillation steps, clip
+generation and end-to-end steps.
 
 Phases print progress lines. Every check raises on failure, so any failed
 phase exits non-zero. The line before the last is a JSON object with the
@@ -346,6 +351,9 @@ def main() -> int:
     serving_launches += train["cascade_launches"]
     log(f"[launches] mel kernel launches on the serving paths after phase "
         f"5: {serving_launches}")
+    # -- 18. -G, -t and end-to-end training from the clips, served ------------
+    with tempfile.TemporaryDirectory(prefix="nww_smoke_") as work:
+        e2e = e2e_phase(rng, cuda, card, work)
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "nanowakeword_tpu"))
@@ -356,7 +364,7 @@ def main() -> int:
         "route": "cuda",
         "source": "nanowakeword_tpu_torch/csrc/mel_frontend.cu",
         "replaces": "nanowakeword_tpu/ops/mel_pallas.py:269",
-        "launches": main_launches + serving_launches,
+        "launches": main_launches + serving_launches + e2e["mel"],
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -368,7 +376,7 @@ def main() -> int:
         "route": "cuda",
         "source": "nanowakeword_tpu_torch/csrc/mix_gain.cu",
         "replaces": "nanowakeword_tpu/ops/mix_pallas.py:93",
-        "launches": train["mix_launches"],
+        "launches": train["mix_launches"] + e2e["mix"],
         "max_abs_err": mix["max_err"],
         "ms": mix["ms"],
         "plain_ms": mix["plain_ms"],
@@ -1241,24 +1249,246 @@ def distill_phase(rng, config, cuda, card, work) -> int:
     return launches
 
 
+def e2e_phase(rng, cuda, card, work) -> dict:
+    """Phase 18: the campaign's pipeline from text, on the card. `-G -t`
+    through `run_pipeline` on a task list in campaign/config_hey_nano.yaml's
+    schema (96 "hey nano" clips, 96 phoneme-adversarial and 96
+    word-adversarial negatives, union3 voices, the campaign's augmentation),
+    then `-T` with `end_to_end.enabled` from those WAVs: the bundled wide128
+    v4 encoder (warm-started, trained in bf16) and the shipped CRNN at full
+    width, 100 steps at the reference's e2e composition (8 targets + 16
+    negatives) and 20 steps at 256 clips a batch; the mel kernel runs in
+    every step's forward. Then one step card vs CPU with a float32 encoder
+    (judge_step), and the exported `.nww`, which bundles the trained
+    encoder, served on the card against the CPU. -> the kernels' launches."""
+    import numpy as np
+    import torch
+    from nanowakeword_tpu_torch import NanoInterpreter
+    from nanowakeword_tpu_torch.convert import encoder_state_dict_from_flax
+    from nanowakeword_tpu_torch.data.features import \
+        pretrained_encoder_variables
+    from nanowakeword_tpu_torch.data.generator import generate_clips as gc
+    from nanowakeword_tpu_torch.export.artifact import load_nww
+    from nanowakeword_tpu_torch.models.model import Model
+    from nanowakeword_tpu_torch.ops import mel_cuda, mix_cuda
+    from nanowakeword_tpu_torch.train.e2e import AudioClipDataset, E2EModel
+    from nanowakeword_tpu_torch.train.trainer import Trainer
+    from nanowakeword_tpu_torch.trainer import run_pipeline
+    from nanowakeword_tpu_torch.utils.audio_io import load_audio
+
+    seconds = {"phase": time.perf_counter()}
+    corpus = _write_corpus(rng, os.path.join(work, "corpus"))
+    dirs = {k: os.path.join(work, "generated", k)
+            for k in ("pos", "neg_phoneme", "neg_word")}
+    voice = {"channel": "union3"}
+    tasks = [
+        {"name": "positives", "output_dir": dirs["pos"], "num_samples": 96,
+         "text_source": {"type": "fixed_phrase", "phrase": "hey nano"},
+         "tts_settings": dict(voice, seed=10)},
+        {"name": "phoneme_adversarial", "output_dir": dirs["neg_phoneme"],
+         "num_samples": 96,
+         "text_source": {"type": "phoneme_adversarial",
+                         "base_phrase": "hey nano", "min_distance": 0.35},
+         "tts_settings": dict(voice, seed=30)},
+        {"name": "word_adversarial", "output_dir": dirs["neg_word"],
+         "num_samples": 96,
+         "text_source": {"type": "auto_adversarial",
+                         "base_phrase": "hey nano"},
+         "tts_settings": dict(voice, seed=40)}]
+
+    def job(sources, name):
+        return {"input_audio_dirs": [dirs[k] for k in sources],
+                "output_filename": f"{name}.npy",
+                "use_background_noise": True, "use_rir": True,
+                "augmentation_rounds": 1}
+
+    config = {
+        "model_name": "smoke_e2e", "output_dir": os.path.join(work, "out"),
+        "target_phrase": "hey nano", "data_generation_tasks": tasks,
+        "clip_length_samples": 32000, "augmentation_batch_size": 512,
+        "feature_gen_num_workers": 8, "background_paths": [corpus["noise"]],
+        "rir_paths": [corpus["rir"]], "show_training_summary": False,
+        "augmentation_settings": dict(SHIPPED_AUGMENTATION),
+        "feature_generation_manifest": {
+            "positive": job(["pos"], "pos"),
+            "negative": job(["neg_phoneme", "neg_word"], "neg")},
+        **SHIPPED_CRNN,
+    }
+
+    # -G and -t: the clips from text, then their features
+    gen_seconds = []
+    generate = gc.generate_clips
+
+    def timed_generate(cfg):
+        t0 = time.perf_counter()
+        generate(cfg)
+        gen_seconds.append(time.perf_counter() - t0)
+
+    mel_cuda.reset_launches()
+    mix_cuda.reset_launches()
+    gc.generate_clips = timed_generate
+    t0 = time.perf_counter()
+    try:
+        out = run_pipeline(config, generate_clips=True, transform_clips=True,
+                           device=cuda)
+    finally:
+        gc.generate_clips = generate
+    seconds["-G -t"] = time.perf_counter() - t0
+    launches = {"mel": mel_cuda.launches, "mix": mix_cuda.launches}
+    counts = {k: len(os.listdir(d)) for k, d in dirs.items()}
+    check(counts == {k: 96 for k in dirs}, f"generated clips {counts}")
+    log(f"[generate] -G: {counts} union3 clips in {gen_seconds[0]:.3f} s: "
+        f"{288 / gen_seconds[0]:.1f} clips/s (host work: numpy synthesis and "
+        f"WAV writes; no device work)")
+    for name, rows in (("pos", 96), ("neg", 192)):
+        f = np.load(os.path.join(out["feature_dir"], f"{name}.npy"))
+        check(f.shape == (rows, 16, 96) and np.isfinite(f).all()
+              and f.std() > 0, f"{name} features {f.shape}")
+    log(f"[transform] -t on the -G clips: features pos (96, 16, 96), neg "
+        f"(192, 16, 96), finite; mix kernel launches {launches['mix']}, mel "
+        f"kernel launches {launches['mel']}")
+    check(launches["mix"] > 0 and launches["mel"] > 0,
+          "-t on the -G clips did not launch both kernels")
+
+    # -T end to end, at two batch compositions
+    manifest = {"targets": [dirs["pos"]],
+                "negatives": [dirs["neg_phoneme"], dirs["neg_word"]]}
+    e2e_cfg = {"enabled": True, "audio_manifest": manifest,
+               "clip_samples": 32000, "context_frames": 16}
+    trainers = []
+    train_model = Trainer.train_model
+
+    def recording_train_model(self, *args, **kwargs):
+        """Keeps the trainer and the host clock at each step's launch."""
+        step, self.stamps = self._step, []
+
+        def stamped(*step_args):
+            self.stamps.append(time.perf_counter())
+            return step(*step_args)
+
+        self._step = stamped
+        trainers.append(self)
+        return train_model(self, *args, **kwargs)
+
+    runs = {}
+    mel_cuda.reset_launches()
+    Trainer.train_model = recording_train_model
+    try:
+        for steps, composition in ((100, {"targets": 8, "negatives": 16}),
+                                   (20, {"targets": 64, "negatives": 192})):
+            before = mel_cuda.launches
+            t0 = time.perf_counter()
+            run = run_pipeline(dict(config, model_name=f"smoke_e2e_{steps}",
+                                    steps=steps, early_stopping_patience=0,
+                                    batch_composition=composition,
+                                    end_to_end=e2e_cfg),
+                               train_model=True, device=cuda)
+            seconds[f"-T e2e, {steps} steps"] = time.perf_counter() - t0
+            run["launches"] = mel_cuda.launches - before
+            run["loop"] = trainers[-1].loop_seconds
+            run["stamps"] = trainers[-1].stamps
+            runs[steps] = run
+    finally:
+        Trainer.train_model = train_model
+    for steps, run in runs.items():
+        loss = run["model"].history["loss"]
+        batch = 24 if steps == 100 else 256
+        check(len(loss) == steps and np.isfinite(loss).all(),
+              f"e2e loss history {len(loss)}")
+        check(run["launches"] >= steps,
+              f"{run['launches']} mel launches in {steps} e2e steps")
+        loop, waited = run["loop"]
+        stamps = run["stamps"][steps // 10:]      # after the first tenth
+        steady = (len(stamps) - 1) / (stamps[-1] - stamps[0])
+        log(f"[e2e] {steps} steps at batch {batch}: loss {loss[0]:.4f} -> "
+            f"{np.mean(loss[-10:]):.4f} (mean of the last 10); mel kernel "
+            f"launches {run['launches']} (one in each step's forward, one "
+            f"in the final report)")
+        log(f"[time] {card}: e2e training, wide128 v4 encoder (bf16) + "
+            f"shipped CRNN, batch {batch}: {steps / loop:.2f} steps/s "
+            f"({loop:.3f} s for {steps} steps, first steps included, host "
+            f"clock), {steady:.2f} steps/s between the launches of the last "
+            f"{len(stamps)} steps; the loop waited on the prefetch thread "
+            f"(WAV decoding) for {waited:.3f} s, {100 * waited / loop:.1f}% "
+            f"of it")
+
+    # the artifact bundles the trained encoder
+    e2e = runs[100]["model"]
+    header, _, encoder = load_nww(runs[100]["artifact"], device="cpu")
+    trained = e2e.module.encoder.state_dict()
+    asset = encoder_state_dict_from_flax(pretrained_encoder_variables())
+    check(header["has_encoder"] and all(torch.equal(encoder[k],
+                                                    trained[k].cpu())
+                                        for k in trained),
+          "the artifact's encoder is not the trained one")
+    moved = max((trained[k].cpu() - torch.as_tensor(asset[k])).abs().max()
+                .item() for k in trained)
+    check(moved > 0, "e2e training did not move the encoder")
+    log(f"[e2e] {os.path.basename(runs[100]['artifact'])} bundles the "
+        f"trained encoder (max|trained - asset| {moved:.3g})")
+
+    # one step, card vs CPU, from the same weights and audio
+    dataset = AudioClipDataset(manifest, clip_samples=32000)
+    pools = dataset.index_pools
+    idx = np.concatenate([pools["targets_0"][:8], pools["negatives_0"][:8],
+                          pools["negatives_1"][:8]])
+    audio, labels, _ = dataset.gather(idx)
+    x, y = torch.from_numpy(audio), torch.from_numpy(labels)
+
+    def fresh(device):
+        clf = Model(config=config, model_name="t", input_shape=(16, 96),
+                    model_type="crnn", layer_dim=64, n_blocks=2,
+                    dropout_prob=0.0, seed=SEED, device=device)
+        return E2EModel(clf, encoder_dtype=torch.float32).train()
+
+    def logits(model, dtype):
+        module = model.module.to(dtype)
+        module.encoder_dtype = dtype
+        return module.classifier(module.embed(x))
+
+    before = mel_cuda.launches
+    t0 = time.perf_counter()
+    judge_step("one AdamW step of the e2e stack (wide128 v4 encoder in "
+               "float32 + shipped CRNN, batch 24, dropout 0)", config, fresh,
+               logits, x, y, cuda)
+    seconds["step card vs CPU"] = time.perf_counter() - t0
+    compare_launches = mel_cuda.launches - before
+
+    # the artifact served, card vs CPU
+    pos = sorted(os.listdir(dirs["pos"]))[0]
+    speech = load_audio(os.path.join(dirs["pos"], pos))[:24000]
+    clip = np.zeros(32000, np.int16)
+    clip[8000:8000 + len(speech)] = speech
+    traces = []
+    t0 = time.perf_counter()
+    for device in (cuda, "cpu"):
+        interp = NanoInterpreter.load_model(runs[100]["artifact"],
+                                            device=device)
+        traces.append(np.array([r.score for r in interp.predict_clip(clip)]))
+    seconds["served, card and CPU"] = time.perf_counter() - t0
+    err = float(np.abs(traces[0] - traces[1]).max())
+    log(f"[e2e] served on the card: {len(traces[0])} chunks, last score "
+        f"{traces[0][-1]:.4f}, max {traces[0].max():.4f}; card vs CPU "
+        f"max|score| {err:.3g}")
+    check(len(traces[0]) == 25 and np.isfinite(traces[0]).all(),
+          "served scores")
+    check(err <= SCORE_TOL, f"e2e artifact card vs CPU {err}")
+    launches["mel"] += mel_cuda.launches - compare_launches
+    log(f"[launches] phase 18: mel kernel {launches['mel']} (-t, e2e "
+        f"training and serving), mix kernel {launches['mix']}")
+    total = time.perf_counter() - seconds.pop("phase")
+    log(f"[time] phase 18: {total:.3f} s, of it "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in seconds.items())
+        + " (host clock)")
+    return launches
+
+
 def step_card_vs_cpu(config, feats, cuda) -> None:
     """One AdamW step of the shipped CRNN from the same weights and batch
-    with dropout 0, on the card and on the CPU.
-
-    Adam's first step moves each weight by lr * g / (|g| + 1e-8) (plus the
-    weight decay), so an element whose clipped gradient sits near rounding
-    level moves by a fraction of lr that the rounding decides: a conv bias
-    right before a BatchNorm has a gradient of exactly zero, and its float32
-    rounding noise (up to ~6e-6, of either sign, different on the card and
-    on the CPU) becomes a step of +-lr. Which elements those are is decided
-    by the gradient in float64 on the CPU, which has no such noise: every
-    element with |g| >= 1e-6 there is held to 1e-5, the others to 2 lr.
-    """
+    with dropout 0, on the card and on the CPU (judge_step)."""
     import numpy as np
     import torch
     from nanowakeword_tpu_torch.models.model import Model
-    from nanowakeword_tpu_torch.train.optim import Optimizer, global_norm
-    from nanowakeword_tpu_torch.train.step import make_loss, make_train_step
 
     x = torch.from_numpy(np.concatenate([feats["pos"][:96],
                                          feats["neg"][:160]]))
@@ -1269,25 +1499,50 @@ def step_card_vs_cpu(config, feats, cuda) -> None:
                      model_type="crnn", layer_dim=64, n_blocks=2,
                      dropout_prob=0.0, seed=SEED, device=device).train()
 
-    runs = {}
-    for device in (cuda, torch.device("cpu")):
+    def logits(model, dtype):
+        model.module.to(dtype)
+        return model.module(x.to(dtype))
+
+    judge_step("one AdamW step of the shipped CRNN (batch 256, dropout 0)",
+               config, fresh, logits, x, y, cuda)
+
+
+def judge_step(what, config, fresh, logits, x, y, cuda) -> None:
+    """One AdamW step of `fresh(device)` (a Model-like handle) on the batch
+    (x, y), on the card and on the CPU; `logits(handle, dtype)` is its
+    forward on the CPU in `dtype`.
+
+    Adam's first step moves each weight by lr * g / (|g| + 1e-8) (plus the
+    weight decay), so an element whose clipped gradient sits near rounding
+    level moves by a fraction of lr that the rounding decides: a conv bias
+    right before a BatchNorm has a gradient of exactly zero, and its float32
+    rounding noise (up to ~6e-6, of either sign, different on the card and
+    on the CPU) becomes a step of +-lr. Which elements those are is decided
+    by the gradient in float64 on the CPU, which has no such noise: every
+    element with |g| >= 1e-6 there is held to 1e-5, the others to 2 lr.
+    """
+    import torch
+    from nanowakeword_tpu_torch.train.optim import Optimizer, global_norm
+    from nanowakeword_tpu_torch.train.step import make_loss, make_train_step
+
+    def one_step(device):
         model = fresh(device)
         optimizer = Optimizer(list(model.module.parameters()), config, 20000)
         metrics = make_train_step(model.module, optimizer)(x.to(device),
                                                            y.to(device))
-        runs[device.type] = (metrics.fetch().packed.numpy(),
-                             {k: v.cpu() for k, v in
-                              model.module.state_dict().items()})
-    (m_card, sd_card), (m_cpu, sd_cpu) = runs["cuda"], runs["cpu"]
+        return (metrics.fetch().packed.numpy(),
+                {k: v.cpu() for k, v in model.module.state_dict().items()})
+
+    (m_card, sd_card), (m_cpu, sd_cpu) = one_step(cuda), one_step(
+        torch.device("cpu"))
 
     def clipped_gradient(dtype):
         """|clipped gradient| on the CPU in dtype, element by element."""
         model = fresh("cpu")
-        model.module.to(dtype)
+        out = logits(model, dtype).reshape(-1)
         params = dict(model.module.named_parameters())
-        grads = torch.autograd.grad(
-            make_loss()(model.module(x.to(dtype)).reshape(-1), y.to(dtype)),
-            list(params.values()))
+        grads = torch.autograd.grad(make_loss()(out, y.to(dtype)),
+                                    list(params.values()))
         clip = min(1.0, 1.0 / global_norm(list(grads)).item())
         return {k: g.abs() * clip for k, g in zip(params, grads)}
 
@@ -1311,12 +1566,11 @@ def step_card_vs_cpu(config, feats, cuda) -> None:
         if (~mask).any():
             n_noise += int((~mask).sum())
             worst_noise = max(worst_noise, diff[~mask].max().item())
-    log(f"[step] card vs CPU, one AdamW step of the shipped CRNN (batch 256, "
-        f"dropout 0): loss rel {loss_err:.3g}, grad norm rel {norm_err:.3g}; "
-        f"weights and BatchNorm stats max|diff| {worst:.3g} ({worst_name}); "
-        f"{n_noise} elements with float64 |g| < 1e-6 ({n_loud} of them "
-        f"read >= 1e-6 in float32): max|diff| {worst_noise:.3g} (bound 2 lr "
-        f"= {2 * lr:.3g})")
+    log(f"[step] card vs CPU, {what}: loss rel {loss_err:.3g}, grad norm rel "
+        f"{norm_err:.3g}; weights and BatchNorm stats max|diff| {worst:.3g} "
+        f"({worst_name}); {n_noise} elements with float64 |g| < 1e-6 "
+        f"({n_loud} of them read >= 1e-6 in float32): max|diff| "
+        f"{worst_noise:.3g} (bound 2 lr = {2 * lr:.3g})")
     check(loss_err <= STEP_RTOL and norm_err <= STEP_RTOL,
           "loss or grad norm card vs CPU")
     check(worst <= WEIGHT_TOL, f"weights card vs CPU {worst}")

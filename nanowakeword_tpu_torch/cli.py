@@ -5,6 +5,7 @@ flags, no subcommands.
 
 Training pipeline
 -----------------
+  python -m nanowakeword_tpu_torch.cli -c config.yaml -G       # clips
   python -m nanowakeword_tpu_torch.cli -c config.yaml -t       # features
   python -m nanowakeword_tpu_torch.cli -c config.yaml -T       # train
   python -m nanowakeword_tpu_torch.cli -c config.yaml          # stages from
@@ -14,8 +15,8 @@ Training pipeline
                                                                # from the
                                                                # exported .nww
 
-Clip generation (-G) is not ported yet; asking for it raises and names
-ROADMAP.md.
+`-f` re-verifies the data directories of a config with `convert_audio:
+true`, ignoring the cached receipts.
 
 Server
 ------
@@ -89,8 +90,7 @@ def _build_parser() -> argparse.ArgumentParser:
     train_group.add_argument("-c", "--config", metavar="PATH", default=None,
                              help="Path to the training configuration YAML.")
     train_group.add_argument("-G", "--generate_clips", action="store_true",
-                             help="Generate synthetic audio clips (not "
-                                  "ported yet).")
+                             help="Generate synthetic audio clips.")
     train_group.add_argument("-t", "--transform_clips", action="store_true",
                              help="Augment clips and extract features.")
     train_group.add_argument("-T", "--train", action="store_true",
@@ -169,19 +169,17 @@ def _run_training(args, config_stages=None):
             "train_model": args.train,
             "distill": args.distill,
         }
-    if stages["generate_clips"]:
-        raise NotImplementedError(
-            "-G (generate_clips) is not ported to PyTorch yet (ROADMAP.md)")
-    if args.force_verify:
-        print("Note: -f has no effect in this port (it has no data "
-              "verification stage).")
     argv = ["-c", args.config, "--device", args.device]
+    if stages["generate_clips"]:
+        argv.append("-G")
     if stages["transform_clips"]:
         argv.append("-t")
     if stages["train_model"]:
         argv.append("-T")
     if stages["distill"]:
         argv.append("-d")
+    if args.force_verify:
+        argv.append("-f")
     if args.overwrite:
         argv.append("--overwrite")
     if args.resume:

@@ -4,7 +4,9 @@
 arrays (`params`, and `batch_stats` where the model has BatchNorm), as the
 `.nww` and asset readers return it, and give the port's `state_dict`;
 `flax_variables_from_state_dict` is the inverse for a classifier, as the
-`.nww` writer stores it.
+`.nww` writer stores it, and `flax_encoder_variables_from_state_dict` for
+an encoder. `e2e_state_dict_from_flax` carries the end-to-end module's
+tree (encoder and classifier) across.
 
 A classifier's tree is walked, not tabulated: every composite module of
 models/architectures.py lists its sub-modules in the order the reference
@@ -360,3 +362,35 @@ def flax_variables_from_state_dict(state_dict, model) -> dict:
     if stats is None:
         return {"params": params}
     return {"batch_stats": {"backbone": stats}, "params": params}
+
+
+def flax_encoder_variables_from_state_dict(state_dict) -> dict:
+    """The inverse of `encoder_state_dict_from_flax`: an encoder's
+    state_dict -> its flax variables ({"params"}, numpy arrays)."""
+    sd = dict(state_dict)
+    params = {"Dense_0": _dense_flax(_sub(sd, "dense"))}
+    if "conv0.weight" in sd:
+        params["Conv_0"] = _kernel_flax(_sub(sd, "conv0"), (2, 3, 1, 0))
+        for i in range(3):
+            params[f"Conv_{i + 1}"] = _kernel_flax(_sub(sd, f"convs.{i}"),
+                                                   (2, 1, 0))
+    else:
+        for i in range(4):
+            params[f"Conv_{i}"] = _kernel_flax(_sub(sd, f"convs.{i}"),
+                                               (2, 3, 1, 0))
+    return {"params": params}
+
+
+def e2e_state_dict_from_flax(variables, e2e_model) -> dict:
+    """An end-to-end module's flax variables ({"params": {"encoder",
+    "classifier"}}, and the classifier's "batch_stats") -> the state_dict
+    of `e2e_model.module` (train/e2e.py's EndToEndModule)."""
+    params = variables["params"]
+    sd = _prefixed("encoder", encoder_state_dict_from_flax(
+        {"params": params["encoder"]}))
+    clf = {"params": params["classifier"],
+           "batch_stats": variables.get("batch_stats", {})
+           .get("classifier", {})}
+    sd.update(_prefixed("classifier", model_state_dict_from_flax(
+        clf, e2e_model.classifier_model)))
+    return sd

@@ -187,6 +187,23 @@ class AudioFeatures:
             outs.append(self._embed_impl(audio).cpu().numpy())
         return np.concatenate(outs, axis=0)
 
+    def _get_melspectrogram(self, x) -> np.ndarray:
+        """Whole-clip log-mel of [samples] or [N, samples] audio, in the
+        frontend's compute dtype, as float32 numpy."""
+        x = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+        with torch.no_grad():
+            return self._mel(x).float().cpu().numpy()
+
+    def _get_embeddings(self, x, **kwargs) -> np.ndarray:
+        """Whole-clip embeddings [frames, 96] of one clip."""
+        return self.embed_clips(np.asarray(x, np.float32)[None], **kwargs)[0]
+
+    def load_encoder_params(self, variables) -> None:
+        """Rebuild the encoder from a flax variables tree (any of the three
+        architectures), on this frontend's device."""
+        self.encoder = encoder_from_state_dict(
+            encoder_state_dict_from_flax(variables), self.device)
+
     def get_embedding_shape(self, audio_length: float, sr: int = 16000):
         """Embedding shape of a clip of `audio_length` seconds."""
         n = int(audio_length * sr)

@@ -1,9 +1,10 @@
 """Reader and writer of the `.nww` model artifact.
 
-The counterpart of `save_nww`, `export_model`, `read_nww_header` and
-`load_nww` in `nanowakeword_tpu/export/artifact.py`. An `.nww` file is the
-4-byte magic `NWW2`, a little-endian u32 header length, a JSON header that
-says how to rebuild the model, and a flax msgpack payload with the
+The counterpart of `save_nww`, `export_model`, `export_params_msgpack`,
+`read_nww_header` and `load_nww` in `nanowakeword_tpu/export/artifact.py`.
+An `.nww` file is the 4-byte magic `NWW2`, a little-endian u32 header
+length, a JSON header that says how to rebuild the model, and a flax
+msgpack payload with the
 classifier variables (in the reference's flax layout) and, optionally, the
 feature encoder's variables. Weights are stored as float32, bfloat16, or
 int8 with per-output-channel scales; all load as float32. The JAX
@@ -256,3 +257,14 @@ def export_model(model, input_shape, config, model_name: str,
     return save_nww(path, model=model, config=config, model_name=model_name,
                     encoder_variables=encoder_variables,
                     weights_dtype=weights_dtype)
+
+
+def export_params_msgpack(model, model_name: str, output_dir: str) -> str:
+    """The raw parameters as flax msgpack, `<output_dir>/<model_name>
+    .msgpack`: the reference's raw-parameters export, in the flax layout
+    the JAX package reads."""
+    path = os.path.join(output_dir, model_name + ".msgpack")
+    print_info(f"Saving raw parameters to '{path}'")
+    with open(path, "wb") as f:
+        f.write(msgpack_serialize(model.variables))
+    return path

@@ -10,6 +10,9 @@ Time geometry:  k=10/s=2 -> k=8/s=2 -> k=8/s=2 -> k=4/s=1
 The public call keeps the reference layout, [B, T, 32] -> [B, T', 96].
 Inside, the convolutions use PyTorch's channels-first layout. They run with
 TF32 off (utils/precision.py), matching the reference's near-f32 precision.
+The input is cast to the parameters' dtype: float32 for serving; called
+with bfloat16 parameters (train/e2e.py) every layer computes and rounds in
+bfloat16, as the reference's encoder does with `dtype=bfloat16`.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ class SpeechEmbeddingEncoder(nn.Module):
         self.dense = nn.Linear(features[-1], EMBEDDING_DIM)
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
-        x = mel[:, None].float()                 # [B, 1, T, 32]
+        x = mel[:, None].to(self.dense.weight.dtype)   # [B, 1, T, 32]
         with no_tf32_convs():
             for conv in self.convs:
                 x = torch.relu(conv(x))
@@ -66,7 +69,7 @@ class WideSpeechEmbeddingEncoder(nn.Module):
         self.dense = nn.Linear(width, EMBEDDING_DIM)
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
-        x = mel[:, None].float()                 # [B, 1, T, 32]
+        x = mel[:, None].to(self.dense.weight.dtype)   # [B, 1, T, 32]
         with no_tf32_convs():
             x = torch.relu(self.conv0(x)).squeeze(3)   # [B, W, T1]
             for conv in self.convs:

@@ -12,7 +12,8 @@ kernels, zero biases, orthogonal GRU/LSTM recurrent kernels, unit norm
 scales) from a seeded `torch.Generator`, so a model the port trains from
 scratch starts from the reference's distribution. `variables` and
 `load_variables` speak the reference's flax layout (convert.py), which the
-`.nww` writer and the trainer's SWA pool use.
+`.nww` writer and the trainer's SWA pool use. `plot_history` draws the
+training graph where matplotlib is installed.
 """
 
 from __future__ import annotations
@@ -354,3 +355,86 @@ class Model:
         out = "\n".join(lines)
         print_info(out)
         return out
+
+    def plot_history(self, output_dir: str) -> Optional[str]:
+        """The training graph (loss and its EMA, validation loss, recall
+        and FPR) as `<output_dir>/graphs/training_performance_graph.png`.
+        Without matplotlib it logs one line and returns None."""
+        try:
+            import matplotlib
+        except ImportError:
+            print_info("matplotlib is not installed; the training graph is "
+                       "skipped.")
+            return None
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        import numpy as np
+
+        print_info("Generating training performance graph...")
+        graph_dir = os.path.join(output_dir, "graphs")
+        os.makedirs(graph_dir, exist_ok=True)
+
+        loss_history = np.asarray(self.history.get("loss", []), np.float64)
+        alpha = float(self.config.get("ema_alpha", 0.01))
+        ema, ema_hist = None, []
+        for v in loss_history:
+            ema = v if ema is None else alpha * v + (1 - alpha) * ema
+            ema_hist.append(ema)
+
+        fig, ax_loss = plt.subplots(figsize=(13, 6))
+        ax_rate = ax_loss.twinx()
+        lines = []
+        line, = ax_loss.plot(loss_history, color="#7EB6E8", alpha=0.3,
+                             linewidth=1.0, label="Train Loss (Raw)")
+        lines.append(line)
+        line, = ax_loss.plot(ema_hist, color="#1A5FA6", linewidth=2.2,
+                             label="Train Loss (EMA)")
+        lines.append(line)
+        if self.history.get("val_loss"):
+            line, = ax_loss.plot(self.history["val_loss_steps"],
+                                 self.history["val_loss"], color="#B85C00",
+                                 linestyle="--", marker="o", markersize=4,
+                                 linewidth=2.2, label="Val Loss")
+            lines.append(line)
+        ax_loss.set_ylabel("Loss", color="#1A5FA6")
+        ax_loss.set_ylim(bottom=0)
+
+        tr_steps = self.history.get("train_recall_steps", [])
+        tr_vals = self.history.get("train_recall", [])
+        if tr_vals:
+            ema_r, ema_tr = None, []
+            for r in tr_vals:
+                ema_r = r if ema_r is None else 0.05 * r + 0.95 * ema_r
+                ema_tr.append(ema_r)
+            line, = ax_rate.plot(tr_steps, tr_vals, color="#82E0AA",
+                                 alpha=0.4, linewidth=1.0,
+                                 label="Train Recall (Raw)")
+            lines.append(line)
+            line, = ax_rate.plot(tr_steps, ema_tr, color="#1A8A44",
+                                 linewidth=2.2, label="Train Recall (EMA)")
+            lines.append(line)
+        if self.history.get("val_recall"):
+            vs = self.history["val_recall_steps"]
+            line, = ax_rate.plot(vs, self.history["val_recall"],
+                                 color="#C0392B", linestyle="--", marker="o",
+                                 markersize=4, linewidth=2.2,
+                                 label="Val Recall")
+            lines.append(line)
+            line, = ax_rate.plot(vs, self.history["val_fpr"],
+                                 color="#7D3C98", linestyle=":", marker="s",
+                                 markersize=3, linewidth=2.0, label="Val FPR")
+            lines.append(line)
+        ax_rate.set_ylabel("Recall / FPR", color="#555555")
+        ax_rate.set_ylim(-0.02, 1.05)
+        ax_loss.set_title("Training Performance", fontsize=14, weight="bold")
+        ax_loss.set_xlabel("Training Steps")
+        ax_loss.grid(True, linestyle="--", alpha=0.25)
+        ax_loss.legend(lines, [ln.get_label() for ln in lines], loc="best",
+                       frameon=True, framealpha=0.7, facecolor="white",
+                       fontsize=9)
+        save_path = os.path.join(graph_dir, "training_performance_graph.png")
+        plt.tight_layout()
+        plt.savefig(save_path, dpi=150)
+        plt.close(fig)
+        print_info(f"Performance graph saved to: {save_path}")
+        return save_path

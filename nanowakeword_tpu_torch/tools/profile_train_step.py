@@ -3,7 +3,8 @@ the device's busy time per step and the host's time per step, for float32
 and bf16 compute in turns, by `torch.profiler`.
 
     python -m nanowakeword_tpu_torch.tools.profile_train_step \\
-        [--model-type crnn] [--steps 20] [--out chiprun_out/train_step.json]
+        [--model-type crnn] [--steps 20] [--e2e] \\
+        [--out train_step.json]
 
 It runs the device-cached loop (train/cached.py) at the shipped width and
 batch composition (96 positives, 160 negatives) on random features made on
@@ -11,8 +12,11 @@ the card from a seed, so it needs no files. For each compute dtype it warms
 up, then profiles `--steps` steps and prints one JSON object: host
 milliseconds per step (clock after a synchronize), kernel launches per step,
 device-busy milliseconds per step (the union of the kernels' intervals), the
-busy share, and the kernels that take the most device time. Needs a CUDA
-device.
+busy share, and the kernels that take the most device time. With `--e2e` it
+profiles the end-to-end step instead (train/e2e.py: the bundled encoder in
+bf16, its mel kernel, the shipped CRNN) on one batch of random int16-valued
+audio made on the card, at batch 24 and 256 in turns: the step alone,
+without the host loop's WAV decoding. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ def _union_us(intervals) -> float:
 
 
 def profile(model_type: str, compute_dtype: str, steps: int, seed: int):
+    """The device-cached loop of `model_type` in `compute_dtype`."""
     cuda = torch.device("cuda")
     g = torch.Generator(device=cuda).manual_seed(seed)
     features = torch.randn(1024, 16, 96, device=cuda, generator=g)
@@ -73,6 +78,42 @@ def profile(model_type: str, compute_dtype: str, steps: int, seed: int):
             dropout_seed=seed)
         return run(hardness, g, features, labels, pools)
 
+    return _measure(loop, steps, {
+        "model_type": model_type, "compute_dtype": compute_dtype,
+        "n_params": model.n_params(), "batch": 256, "steps": steps})
+
+
+def profile_e2e(batch: int, steps: int, seed: int):
+    """The end-to-end step of train/e2e.py at `batch` clips of 32000
+    samples, as the host loop launches it (train/step.py)."""
+    from nanowakeword_tpu_torch.train.e2e import E2EModel
+    from nanowakeword_tpu_torch.train.step import make_train_step
+    cuda = torch.device("cuda")
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    audio = torch.randint(-3000, 3000, (batch, 32000), device=cuda,
+                          generator=g).float()
+    labels = (torch.arange(batch, device=cuda) % 3 == 0).float()
+    model = E2EModel(Model(config=SHIPPED, model_name="profiled",
+                           input_shape=(16, 96), model_type="crnn",
+                           layer_dim=64, n_blocks=2, dropout_prob=0.3,
+                           seed=seed, device=cuda)).train()
+    optimizer = Optimizer(list(model.module.parameters()), SHIPPED, 20000)
+    step = make_train_step(model.module, optimizer, dropout_seed=seed)
+
+    def loop(k):
+        for _ in range(k):
+            metrics = step(audio, labels)
+        return metrics.loss.item()
+
+    return _measure(loop, steps, {
+        "model_type": "e2e: wide128 encoder (bf16) + crnn",
+        "compute_dtype": "float32", "n_params": model.n_params(),
+        "batch": batch, "steps": steps})
+
+
+def _measure(loop, steps: int, out: dict) -> dict:
+    """Host ms per step of `loop(steps)` after a warm-up, then the same
+    under the profiler: launches, device-busy ms and the top kernels."""
     loop(10)                                               # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -86,9 +127,7 @@ def profile(model_type: str, compute_dtype: str, steps: int, seed: int):
         loop(steps)
         torch.cuda.synchronize()
     intervals = _device_intervals(prof)
-    out = {"model_type": model_type, "compute_dtype": compute_dtype,
-           "n_params": model.n_params(), "batch": 256, "steps": steps,
-           "host_ms_per_step": host_ms}
+    out["host_ms_per_step"] = host_ms
     if not intervals:
         out["device"] = "not measured: the profiler saw no device events"
         return out
@@ -113,14 +152,22 @@ def main(argv=None) -> int:
     parser.add_argument("--model-type", default="crnn")
     parser.add_argument("--steps", type=int, default=20)
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--e2e", action="store_true",
+                        help="profile the end-to-end step at batch 24 and "
+                             "256 instead")
     parser.add_argument("--out", default=None,
                         help="also write the results to this JSON file")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train_step: no CUDA device", file=sys.stderr)
         return 1
-    results = [profile(args.model_type, dtype, args.steps, args.seed)
-               for dtype in ("float32", "bfloat16", "bfloat16", "float32")]
+    if args.e2e:
+        results = [profile_e2e(batch, args.steps, args.seed)
+                   for batch in (24, 256, 256, 24)]
+    else:
+        results = [profile(args.model_type, dtype, args.steps, args.seed)
+                   for dtype in ("float32", "bfloat16", "bfloat16",
+                                 "float32")]
     card = {"card": torch.cuda.get_device_name(0)}
     for r in results:
         print(json.dumps({**card, **r}), flush=True)

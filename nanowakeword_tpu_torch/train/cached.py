@@ -25,11 +25,13 @@ from nanowakeword_tpu_torch.train import loss as losses
 from nanowakeword_tpu_torch.train.optim import Optimizer
 from nanowakeword_tpu_torch.train.step import (forward_backward, make_loss,
                                                resolve_compute_dtype)
-from nanowakeword_tpu_torch.utils.logger import print_info
+from nanowakeword_tpu_torch.utils.logger import print_info, print_warning
 
 HARDNESS_SMOOTHING = 0.75
 WEIGHT_FLOOR = 1e-6
 SAMPLING_MODES = ("exact", "approx", "auto")
+# the share of the card's free memory that a feature cache may take
+CACHE_MEMORY_SHARE = 0.8
 
 
 class CachedData(NamedTuple):
@@ -44,7 +46,8 @@ class CachedData(NamedTuple):
 def materialize_rows(dataset):
     """Dense float32 host copies of every (feature, label) row of a
     dataset, for one upload. Rows with differing frame counts are
-    pad/truncated to the most common length, as the reference does."""
+    pad/truncated to the most common length, as the reference does; how
+    many were padded and how many truncated is logged."""
     n = len(dataset)
     rows = []
     labels = np.empty(n, np.float32)
@@ -58,7 +61,28 @@ def materialize_rows(dataset):
     for i, f in enumerate(rows):
         m = min(f.shape[0], target_len)
         feats[i, :m] = f[:m]
+    padded = sum(length < target_len for length in lengths)
+    truncated = sum(length > target_len for length in lengths)
+    if padded or truncated:
+        print_warning(f"{padded} of {n} feature rows were zero-padded and "
+                      f"{truncated} truncated to the most common length of "
+                      f"{target_len} frames")
     return feats, labels
+
+
+def check_cache_fits(n_bytes: int, device: torch.device,
+                     what: str = "feature cache") -> None:
+    """Raise if `n_bytes` of `what` would not fit in the share of the
+    card's free memory that a cache may take. Host rows need no check."""
+    if device.type != "cuda":
+        return
+    free, total = torch.cuda.mem_get_info(device)
+    if n_bytes > CACHE_MEMORY_SHARE * free:
+        raise MemoryError(
+            f"the {what} needs {n_bytes / 2**30:.2f} GiB but the device has "
+            f"{free / 2**30:.2f} GiB free of {total / 2**30:.2f} GiB (the "
+            f"cache may take {CACHE_MEMORY_SHARE:.0%} of what is free); use "
+            "fewer feature rows")
 
 
 def build_cached_data(dataset, batch_composition: Dict[str, int],
@@ -67,6 +91,10 @@ def build_cached_data(dataset, batch_composition: Dict[str, int],
     print_info(f"Uploading {len(dataset)} feature rows to the device "
                "(device-cache training mode)...")
     feats, labels = materialize_rows(dataset)
+    device = torch.device(device)
+    check_cache_fits(feats.nbytes + labels.nbytes
+                     + dataset.sample_hardness.size * 4, device,
+                     "device-cached training set")
     pools, quotas, replace = [], [], []
     for rule, quota in batch_composition.items():
         quota = int(quota)

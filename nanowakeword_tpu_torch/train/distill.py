@@ -26,7 +26,8 @@ import numpy as np
 import torch
 
 from nanowakeword_tpu_torch.models.model import Model
-from nanowakeword_tpu_torch.train.cached import materialize_rows
+from nanowakeword_tpu_torch.train.cached import (check_cache_fits,
+                                                 materialize_rows)
 from nanowakeword_tpu_torch.train.loss import distill_loss
 from nanowakeword_tpu_torch.train.optim import Optimizer
 from nanowakeword_tpu_torch.train.step import seed_dropout
@@ -36,8 +37,6 @@ from nanowakeword_tpu_torch.utils.precision import no_tf32_convs
 DROPOUT_SEED = 10
 EMA_ALPHA = 0.02
 STEPS_PER_DISPATCH = 250
-# share of the device's free memory that the cached features may take
-CACHE_MEMORY_SHARE = 0.8
 
 
 def build_student(teacher_name: str, input_shape: Tuple[int, ...],
@@ -93,21 +92,6 @@ def make_distill_step(teacher_module, student_module, optimizer: Optimizer,
     return step
 
 
-def check_cache_fits(n_bytes: int, device: torch.device) -> None:
-    """Raise if `n_bytes` of cached features would not fit in the share of
-    the card's free memory that the cache may take."""
-    if device.type != "cuda":
-        return
-    free, total = torch.cuda.mem_get_info(device)
-    if n_bytes > CACHE_MEMORY_SHARE * free:
-        raise MemoryError(
-            f"the distillation feature cache needs {n_bytes / 2**30:.2f} GiB "
-            f"but the device has {free / 2**30:.2f} GiB free of "
-            f"{total / 2**30:.2f} GiB (the cache may take "
-            f"{CACHE_MEMORY_SHARE:.0%} of what is free); use fewer feature "
-            "rows")
-
-
 def _run_distill_loop(teacher_module, student: Model, X_train, steps: int,
                       temperature: float, alpha: float, lr: float,
                       log_interval: int, desc: str) -> Model:
@@ -119,7 +103,8 @@ def _run_distill_loop(teacher_module, student: Model, X_train, steps: int,
                                 temperature, alpha)
 
     feats_host, labels_host = materialize_rows(X_train[0])
-    check_cache_fits(feats_host.nbytes + labels_host.nbytes, device)
+    check_cache_fits(feats_host.nbytes + labels_host.nbytes, device,
+                     "distillation feature cache")
     print_info(f"[Distillation] Uploading {len(feats_host)} feature rows "
                f"({feats_host.nbytes / 2**20:.1f} MiB) to the device...")
     cache_f = torch.from_numpy(feats_host).to(device)

@@ -176,7 +176,10 @@ def forward_backward(module: nn.Module, optimizer: Optimizer, total_loss,
                 module, cast, (features.to(compute_dtype),))
         logits = logits.reshape(-1).float()
         total = total_loss(logits, labels)
-        grads = torch.autograd.grad(total, optimizer.params)
+        # a parameter the loss does not reach (a frozen encoder) gets a zero
+        # gradient, as jax.grad gives it, so the optimizer still decays it
+        grads = torch.autograd.grad(total, optimizer.params,
+                                    materialize_grads=True)
     grad_norm = optimizer.step(grads)
     return total.detach(), grad_norm, logits.detach()
 

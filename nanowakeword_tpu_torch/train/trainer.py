@@ -25,6 +25,7 @@ import pickle
 import re
 import shutil
 import threading
+import time
 from logging.handlers import RotatingFileHandler
 from typing import Optional
 
@@ -80,6 +81,9 @@ class Trainer:
                    f"{str(config.get('lr_scheduler_type', 'onecycle')).upper()}")
 
         self.history = model.history
+        # the host loop's last run: (seconds in the loop, seconds of them
+        # the loop waited on the prefetch thread for a batch)
+        self.loop_seconds = (0.0, 0.0)
         self.best_training_checkpoints: list = []
         self.best_training_scores: list = []
         self.best_error_score = float("inf")
@@ -426,9 +430,11 @@ class Trainer:
             event.record(copy_stream)
         return f_dev, y_dev, event
 
-    def train_model(self, X, X_val, max_steps, log_path,
+    def train_model(self, X, X_val, max_steps, log_path, table_updater=None,
                     resume_from_dir=None):
-        """X: (dataset, sampler) pair; X_val: ValidationDataset or None."""
+        """X: (dataset, sampler) pair; X_val: ValidationDataset or None;
+        table_updater: a DynamicTable (utils/dynamic_table.py) printed once
+        the host loop has read its settings."""
         dataset, sampler = X
         config = self.config
 
@@ -527,11 +533,17 @@ class Trainer:
                     "val_steps_without_improvement", 0)
                 if ckpt.get("dataset_hardness") is not None:
                     dataset.sample_hardness[:] = ckpt["dataset_hardness"]
+                if (ckpt.get("dataset_rng_state") is not None
+                        and hasattr(dataset, "_rng")):
+                    dataset._rng.setstate(ckpt["dataset_rng_state"])
                 pending_restored = ckpt.get("pending_hardness_update")
                 print_info(f"Restored state; resuming from step {start_step}.")
             else:
                 print_info(f"WARNING: no checkpoint in '{resume_ckpt_dir}'. "
                            "Starting fresh.")
+
+        if table_updater is not None:
+            table_updater.update(force_print=True)
 
         # optional device tracing of steps
         # [profile_start, profile_start + profile_steps)
@@ -586,10 +598,15 @@ class Trainer:
                 raise ValueError("Sampler produced an empty batch - check "
                                  "batch_composition vs feature_manifest.")
             feats, labels, indices = dataset.gather(batch_indices)
-            # the sampler's generator right after this batch was drawn:
-            # checkpointing THIS (not the live state, which has drawn ahead)
-            # is what makes resume continue the exact same batch sequence
-            rng_snapshot = sampler.rng.bit_generator.state
+            # the generators right after this batch was produced: the
+            # sampler's and, for raw audio (train/e2e.py), the dataset's
+            # random crops. Checkpointing THESE (not the live states, which
+            # have drawn ahead) is what makes resume continue the exact
+            # same batch sequence
+            rng_snapshot = {
+                "sampler": sampler.rng.bit_generator.state,
+                "dataset": (dataset._rng.getstate()
+                            if hasattr(dataset, "_rng") else None)}
             # the upload starts HERE, on the prefetch thread, so the copy
             # overlaps the current step
             f_dev, l_dev, copied = self._upload(feats, labels, copy_stream)
@@ -599,6 +616,7 @@ class Trainer:
             return f_dev, l_dev, copied, labels, indices, rng_snapshot
 
         prefetcher = Prefetcher(produce_batch, depth=2)
+        loop_start = time.perf_counter()
         # (step, indices, bce) of the most recently applied hardness update,
         # saved in checkpoints so resume can replay it in order
         last_update_record = [None]
@@ -738,7 +756,8 @@ class Trainer:
                         val_steps_without_improvement=val_steps_without_improvement,
                         dataset_hardness=hardness_before,
                         pending_hardness_update=last_update_record[0],
-                        sampler_rng_state=rng_after_current)
+                        sampler_rng_state=rng_after_current["sampler"],
+                        dataset_rng_state=rng_after_current["dataset"])
                     self._rotate_checkpoints(checkpoint_dir, ckpt_limit)
 
                 # validation
@@ -785,16 +804,19 @@ class Trainer:
                 stop_pipe[0] = True
                 pipe.notify_all()
             prefetcher.close()
+            self.loop_seconds = (time.perf_counter() - loop_start,
+                                 prefetcher.waited)
             if profiler is not None:
                 stop_profiler()
         return step_ndx
 
     # -- auto_train ---------------------------------------------------------------------
 
-    def auto_train(self, X_train, X_val, steps, debug_path=".",
-                   resume_from_dir=None):
+    def auto_train(self, X_train, X_val, steps, table_updater=None,
+                   debug_path=".", resume_from_dir=None):
         self.train_model(X=X_train, X_val=X_val, max_steps=steps,
-                         log_path=debug_path, resume_from_dir=resume_from_dir)
+                         log_path=debug_path, table_updater=table_updater,
+                         resume_from_dir=resume_from_dir)
         print_info("Training finished. Building final model...")
         dataset, sampler = X_train
         final_params = None

@@ -29,7 +29,10 @@ AUDIO_EXTENSIONS = {".wav", ".mp3", ".flac", ".m4a", ".ogg"}
 def read_wav(path: str):
     """-> (int16 mono samples, sample_rate). Handles 8/16/32-bit PCM WAV.
 
-    Decoded with the stdlib `wave` module and numpy.
+    Decoded with the stdlib `wave` module and numpy. 16-bit channels fold
+    to mono as the JAX package's native decoder folds them
+    (`native/nww_runtime.cc`, `nww_wav_decode`): the integer sum divided by
+    the channel count, truncated toward zero.
     """
     with wave.open(path, "rb") as f:
         sr = f.getframerate()
@@ -47,7 +50,11 @@ def read_wav(path: str):
                 - 128.0) * 256.0
     else:
         raise ValueError(f"Unsupported WAV sample width {width} in {path}")
-    if channels > 1:
+    if channels > 1 and width == 2:
+        acc = np.frombuffer(raw, dtype=np.int16).astype(np.int32).reshape(
+            -1, channels).sum(axis=1)
+        data = np.sign(acc) * (np.abs(acc) // channels)
+    elif channels > 1:
         data = data.reshape(-1, channels).mean(axis=1)
     return data.astype(np.float32), sr
 

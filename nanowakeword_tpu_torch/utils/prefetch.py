@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Iterator, Optional
 
 _SENTINEL = object()
@@ -30,6 +31,8 @@ class Prefetcher:
         self._queue: queue.Queue = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
         self._error: Optional[BaseException] = None
+        # seconds the consumer spent blocked in `get`, waiting on the producer
+        self.waited = 0.0
 
         if hasattr(producer, "__next__") or hasattr(producer, "__iter__"):
             iterator = iter(producer)
@@ -59,7 +62,9 @@ class Prefetcher:
         return self
 
     def __next__(self):
+        t0 = time.perf_counter()
         item = self._queue.get()
+        self.waited += time.perf_counter() - t0
         if item is _SENTINEL:
             if self._error is not None:
                 raise self._error

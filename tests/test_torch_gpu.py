@@ -1,8 +1,9 @@
 """The port on a CUDA device: the mel and mix kernels against their plain
 versions, the serving path on the card against the same port on the CPU
 (batch, the streaming cascade through the replayed one-call step, a
-stateful model, the server's scoring path), and the augmentation chain
-launching the mix kernel.
+stateful model, the server's scoring path), the augmentation chain
+launching the mix kernel, and end-to-end training's module and step, whose
+forward launches the mel kernel.
 
 Every test here is `gpu`-marked and skips without a CUDA device. On a
 machine with one: `python -m pytest -m gpu tests/test_torch_gpu.py -q`.
@@ -399,3 +400,60 @@ def test_bf16_step_invariants_on_the_card(rng, cuda):
         assert norm.running_mean.abs().sum() > 0
     assert abs(losses["bfloat16"] - losses["float32"]) < 2e-2 * abs(
         losses["float32"])
+
+
+def _e2e(device, encoder_dtype):
+    from nanowakeword_tpu_torch.models.model import Model
+    from nanowakeword_tpu_torch.train.e2e import E2EModel
+    clf = Model(config={"embedding_dim": 16}, model_name="e2e",
+                input_shape=(16, 96), model_type="dnn", layer_dim=16,
+                n_blocks=1, dropout_prob=0.0, seed=3, device=device)
+    return E2EModel(clf, encoder_dtype=encoder_dtype)
+
+
+@pytest.mark.parametrize("encoder_dtype,tol", [
+    # float32: the tolerances of the card-vs-CPU features and scores;
+    # bf16: the bar of tests/test_torch_e2e.py's bf16 forward
+    (torch.float32, FEATURE_TOL), (torch.bfloat16, 1e-2)])
+def test_e2e_forward_launches_the_mel_kernel(rng, cuda, encoder_dtype, tol):
+    """EndToEndModule on the card takes its mel from the kernel (one launch
+    per forward) and gives the CPU's logits."""
+    audio = _audio(rng, (6, 32000), np.float32)
+    before = mel_cuda.launches
+    with torch.no_grad():
+        on_card = _e2e(cuda, encoder_dtype).module(
+            torch.from_numpy(audio).to(cuda)).cpu().numpy()
+    assert mel_cuda.launches == before + 1
+    with torch.no_grad():
+        on_cpu = _e2e("cpu", encoder_dtype).module(
+            torch.from_numpy(audio)).numpy()
+    assert on_card.shape == (6, 1) and np.isfinite(on_card).all()
+    np.testing.assert_allclose(on_card, on_cpu, rtol=0, atol=tol)
+
+
+def test_e2e_step_card_matches_cpu(rng, cuda):
+    """One float32 AdamW step of the e2e stack: loss and grad norm on the
+    card within 1e-4 of the CPU's, the mel kernel in the forward."""
+    from nanowakeword_tpu_torch.train.optim import Optimizer
+    from nanowakeword_tpu_torch.train.step import make_train_step
+    x = torch.from_numpy(_audio(rng, (8, 32000), np.float32))
+    y = (torch.arange(8) % 4 == 0).float()
+    packed = []
+    for device in (cuda, torch.device("cpu")):
+        e2e = _e2e(device, torch.float32).train()
+        opt = Optimizer(list(e2e.module.parameters()), {}, 10)
+        before = mel_cuda.launches
+        metrics = make_train_step(e2e.module, opt)(x.to(device), y.to(device))
+        packed.append(metrics.fetch().packed.numpy())
+        assert mel_cuda.launches == before + (device.type == "cuda")
+    np.testing.assert_allclose(packed[0][:2], packed[1][:2], rtol=1e-4)
+
+
+def test_cache_check_names_the_cache_on_the_card(cuda):
+    """A cache larger than the card's free memory is refused before the
+    upload, with the cache's name in the message."""
+    from nanowakeword_tpu_torch.train.cached import check_cache_fits
+    free, _ = torch.cuda.mem_get_info(cuda)
+    check_cache_fits(1 << 20, cuda, "device-cached training set")
+    with pytest.raises(MemoryError, match="device-cached training set"):
+        check_cache_fits(free, cuda, "device-cached training set")

@@ -523,10 +523,10 @@ def test_cli_training_flags_reach_the_trainer(monkeypatch, tmp_path):
     seen = {}
     monkeypatch.setattr(trainer, "train",
                         lambda cli_args: seen.update(argv=cli_args))
-    cli.main(["-c", "cfg.yaml", "-t", "-T", "--overwrite", "--resume", "dir",
-              "--device", "cpu"])
-    assert seen["argv"] == ["-c", "cfg.yaml", "--device", "cpu", "-t", "-T",
-                            "--overwrite", "--resume", "dir"]
+    cli.main(["-c", "cfg.yaml", "-G", "-t", "-T", "-f", "--overwrite",
+              "--resume", "dir", "--device", "cpu"])
+    assert seen["argv"] == ["-c", "cfg.yaml", "--device", "cpu", "-G", "-t",
+                            "-T", "-f", "--overwrite", "--resume", "dir"]
     # stages read from the config file when no flag is given
     cfg = tmp_path / "cfg.yaml"
     cfg.write_text("train_model: true\n")
@@ -535,8 +535,9 @@ def test_cli_training_flags_reach_the_trainer(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("flag,error,match", [
-    pytest.param("-G", NotImplementedError, "ROADMAP.md", id="-G"),
-    # distillation is ported: -d reaches the pipeline, which opens the config
+    # both stages are ported: the flag reaches the pipeline, which opens
+    # the config
+    pytest.param("-G", FileNotFoundError, "cfg.yaml", id="-G"),
     pytest.param("-d", FileNotFoundError, "cfg.yaml", id="-d")])
 def test_cli_unported_stages_raise(flag, error, match):
     with pytest.raises(error, match=match):
