@@ -27,10 +27,15 @@ Last, the campaign from text: clip generation (`-G`) and `-t` on a task
 list in the shipped campaign's schema, end-to-end training of the bundled
 encoder and the shipped CRNN from those WAVs with the mel kernel in every
 step's forward, one such step on the card against the CPU, and the result
-served on the card against the CPU. It times both kernels against their
-plain versions, batch scoring, streaming latency (eager and replayed), the
-server's requests per second, the transform stage, training steps of both
-loops in float32 and bf16, each family's forward, distillation steps, clip
+served on the card against the CPU. Then ONNX on the card: the shipped
+cascade exported to `.onnx` and streamed against the `.nww` cascade, batch
+scoring, every family's graph against its module, a stateful graph's
+threaded state, the server on an `.onnx`, the numpy frontend graphs, and
+the `.onnx` files that `-T`, `-d` and end-to-end training write. It times
+both kernels against their plain versions, batch scoring, streaming
+latency (eager, replayed and `.onnx`), the server's requests per second,
+the transform stage, training steps of both loops in float32 and bf16,
+each family's forward (module and `.onnx`), distillation steps, clip
 generation and end-to-end steps.
 
 Phases print progress lines. Every check raises on failure, so any failed
@@ -354,6 +359,9 @@ def main() -> int:
     # -- 18. -G, -t and end-to-end training from the clips, served ------------
     with tempfile.TemporaryDirectory(prefix="nww_smoke_") as work:
         e2e = e2e_phase(rng, cuda, card, work)
+    # -- 19. ONNX on the card ---------------------------------------------------
+    with tempfile.TemporaryDirectory(prefix="nww_smoke_") as work:
+        onnx_launches = onnx_phase(rng, cuda, card, work)
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "nanowakeword_tpu"))
@@ -364,7 +372,8 @@ def main() -> int:
         "route": "cuda",
         "source": "nanowakeword_tpu_torch/csrc/mel_frontend.cu",
         "replaces": "nanowakeword_tpu/ops/mel_pallas.py:269",
-        "launches": main_launches + serving_launches + e2e["mel"],
+        "launches": (main_launches + serving_launches + e2e["mel"]
+                     + onnx_launches),
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -952,6 +961,11 @@ def training_phases(rng, cuda, card, work) -> dict:
     log(f"[train] loss {history[0]:.4f} -> {np.mean(history[-10:]):.4f} "
         f"(mean of the last 10); hardness moved on "
         f"{int((hardness != 1.0).sum())} of {hardness.size} rows")
+    check_onnx_exports(os.path.dirname(trained["artifact"]), "smoke_crnn",
+                       (".onnx",) + FRONTEND_GRAPHS)
+    onnx_vs_nww(trained["artifact"],
+                np.concatenate([feats["pos"][:128], feats["neg"][:128]]),
+                cuda)
 
     model = Model(config=config, model_name="t", input_shape=(16, 96),
                   model_type="crnn", layer_dim=64, n_blocks=2,
@@ -1057,6 +1071,9 @@ def host_loop_phase(config, cuda, card, work, cached_rate) -> None:
                 del drawn[:]
                 runs[run] = run_pipeline(cfg, train_model=True, resume=resume,
                                          device=cuda)
+                check_onnx_exports(os.path.dirname(runs[run]["artifact"]),
+                                   f"host_{family}",
+                                   (".onnx",) + FRONTEND_GRAPHS)
                 runs[run]["drawn"] = list(drawn)
                 runs[run]["seconds"] = loop_seconds[-1]
             a, b = runs["straight"], runs["resumed"]
@@ -1207,6 +1224,9 @@ def distill_phase(rng, config, cuda, card, work) -> int:
                           history["distill_final_ema_loss"])
     check(lite == os.path.join(out_dir, "hey_nano_crnn_lite.nww")
           and os.path.exists(lite), f"lite artifact {lite}")
+    # as the JAX package's distill_from_artifact: the `.nww` alone
+    check(not os.path.exists(lite[:-len(".nww")] + ".onnx"),
+          "standalone distillation wrote an _lite.onnx")
     check(np.isfinite([first, best, final]).all() and best < first
           and best <= final, f"EMA loss {first} -> best {best}, last {final}")
     header, written, encoder = load_nww(lite, device=cuda)
@@ -1426,6 +1446,17 @@ def e2e_phase(rng, cuda, card, work) -> dict:
     check(moved > 0, "e2e training did not move the encoder")
     log(f"[e2e] {os.path.basename(runs[100]['artifact'])} bundles the "
         f"trained encoder (max|trained - asset| {moved:.3g})")
+    from nanowakeword_tpu_torch.export import onnx_proto
+    for steps, run in runs.items():
+        check_onnx_exports(os.path.dirname(run["artifact"]),
+                           f"smoke_e2e_{steps}", FRONTEND_GRAPHS)
+    graph = onnx_proto.load_model(runs[100]["artifact"][:-len(".nww")]
+                                  + "_embedding.onnx").graph
+    check(np.array_equal(graph.initializers[graph.nodes[1].inputs[1]],
+                         trained["conv0.weight"].cpu().numpy()),
+          "the embedding graph does not hold the trained encoder")
+    log("[onnx] the e2e embedding graph holds the trained encoder's first "
+        "convolution")
 
     # one step, card vs CPU, from the same weights and audio
     dataset = AudioClipDataset(manifest, clip_samples=32000)
@@ -1481,6 +1512,313 @@ def e2e_phase(rng, cuda, card, work) -> dict:
         + ", ".join(f"{k} {v:.3f} s" for k, v in seconds.items())
         + " (host clock)")
     return launches
+
+
+ONNX_TOL = 1e-5     # an .onnx graph against the port's module, both on the
+                    # card (and a request in a batch vs alone)
+INT8_TOL = 0.02     # an int8 export against the float32 module (the JAX
+                    # package's bar, tests/test_onnx_export.py)
+ONNX_TYPES = ("dnn", "crnn", "streaming_gru") + ZOO
+
+
+def onnx_phase(rng, cuda, card, work) -> int:
+    """Phase 19: `.onnx` models on the card. The shipped cascade exported
+    by the port and streamed (the `_lite.onnx` gate auto-discovered)
+    against the `.nww` cascade; batch scoring through `_OnnxSession`; every
+    family's export against its module; a stateful graph's carry; the
+    server on an `.onnx`; the numpy frontend graphs. -> mel launches."""
+    import asyncio
+
+    import numpy as np
+    import torch
+    from nanowakeword_tpu_torch import AudioFeatures, NanoInterpreter
+    from nanowakeword_tpu_torch.data.features import \
+        default_encoder_variables
+    from nanowakeword_tpu_torch.export.artifact import (export_onnx_model,
+                                                        load_nww, save_nww)
+    from nanowakeword_tpu_torch.export.frontend import export_frontend_onnx
+    from nanowakeword_tpu_torch.export.onnx_export import build_onnx
+    from nanowakeword_tpu_torch.export.onnx_torch import OnnxTorchModel
+    from nanowakeword_tpu_torch.interpreter import remote_verifier as rv
+    from nanowakeword_tpu_torch.interpreter.nanointerpreter import (
+        _LocalSession, _OnnxSession)
+    from nanowakeword_tpu_torch.models.model import Model
+    from nanowakeword_tpu_torch.ops import mel_cuda
+
+    t_phase = time.perf_counter()
+    for name in ("hey_nano_crnn", "hey_nano_crnn_lite"):
+        _, model, _ = load_nww(os.path.join(ROOT, "campaign", name + ".nww"),
+                               device="cpu")
+        export_onnx_model(model, model.input_shape, {}, name, work)
+    crnn_onnx = os.path.join(work, "hey_nano_crnn.onnx")
+
+    # a. the shipped cascade, phase 12's 50 chunks, VAD gate on
+    clip = _tone_clip(SEED)
+    n_chunks = len(clip) // 1280
+
+    def stream(path, device, timed=False):
+        interp = NanoInterpreter.load_model(path, cascade=True,
+                                            gate_threshold=0.0,
+                                            vad_threshold=0.3, device=device)
+        check(interp.gate_name == os.path.basename(path).split(".")[0]
+              + "_lite", f"cascade gate not found: {interp!r}")
+        scores, ms = [], []
+        for c in range(n_chunks):
+            if timed:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = interp.predict(clip[c * 1280:(c + 1) * 1280])
+            ms.append((time.perf_counter() - t0) * 1e3)
+            scores.append([r.gate_score, r.score])
+        return interp, np.array(scores), np.array(ms)
+
+    mel_cuda.reset_launches()
+    interp, onnx_scores, ms = stream(crnn_onnx, cuda, timed=True)
+    launches = mel_cuda.launches
+    check(interp._fused_step is None, "an .onnx cascade built the one-call "
+          "step")
+    _, nww_scores, _ = stream(CRNN, cuda)
+    _, cpu_scores, _ = stream(crnn_onnx, "cpu")
+    err_nww = float(np.abs(onnx_scores - nww_scores).max())
+    err_cpu = float(np.abs(onnx_scores - cpu_scores).max())
+    opened = int(np.count_nonzero(onnx_scores[:, 1]))
+    log(f"[onnx] shipped cascade as .onnx on the card ({n_chunks} chunks, "
+        f"VAD on): vs the .nww cascade on the card max|score| {err_nww:.3g} "
+        f"(bound {ONNX_TOL:g}); vs .onnx on the CPU {err_cpu:.3g} (bound "
+        f"{SCORE_TOL:g}); verifier scored on {opened} chunks; mel launches "
+        f"{launches}")
+    check(err_nww <= ONNX_TOL, f".onnx vs .nww cascade {err_nww}")
+    check(err_cpu <= SCORE_TOL, f".onnx card vs CPU {err_cpu}")
+    check(0 < opened < n_chunks, "the VAD gate never opened or never closed")
+    check(launches >= n_chunks, f"{launches} mel launches for {n_chunks} "
+          "chunks")
+    log(f"[time] {card}: streaming predict per 80 ms chunk, .onnx cascade "
+        f"(general path, eager feature step, cascade + VAD, host clock): "
+        f"p50 {np.percentile(ms[10:], 50):.3f} ms, p90 "
+        f"{np.percentile(ms[10:], 90):.3f} ms over {len(ms) - 10} chunks")
+
+    # b. batch: embed_clips (mel kernel), then both sessions
+    header, model, encoder = load_nww(CRNN, device=cuda)
+    features = AudioFeatures(encoder_state_dict=encoder, device=cuda)
+    sessions = {".nww": _LocalSession(model, header),
+                ".onnx": _OnnxSession(crnn_onnx, cuda)}
+    clips = np.clip(rng.normal(0.0, 3000.0, (1024, 32000)), -32768,
+                    32767).astype(np.int16)
+    before = mel_cuda.launches
+    feats = features.embed_clips(clips, batch_size=1024)
+    batch = {k: s.run_batch(feats) for k, s in sessions.items()}
+    batch_launches = mel_cuda.launches - before
+    err = float(np.abs(batch[".onnx"] - batch[".nww"]).max())
+    check(batch[".onnx"].shape == (1024,) and err <= ONNX_TOL,
+          f"batch .onnx vs .nww {err}")
+    check(batch_launches >= 1, "batch scoring did not launch the mel kernel")
+    rates = {k: [] for k in sessions}
+    for k in sessions:                                    # warm-up
+        sessions[k].run_batch(features.embed_clips(clips, batch_size=1024))
+    for _ in range(3):
+        for k, session in sessions.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            session.run_batch(features.embed_clips(clips, batch_size=1024))
+            rates[k].append(1024 / (time.perf_counter() - t0))
+    launches += mel_cuda.launches - before
+    log(f"[onnx] batch [1024, 32000] int16: .onnx vs .nww max|score| "
+        f"{err:.3g} (bound {ONNX_TOL:g}); mel launches {batch_launches}")
+    log(f"[time] {card}: batch scoring [1024, 32000] int16 host -> scores, "
+        f"best of 3 after a warm-up (host clock): .onnx "
+        f"{max(rates['.onnx']):.1f} clips/s, .nww {max(rates['.nww']):.1f} "
+        f"clips/s (runs: "
+        + "; ".join(f"{k} {[round(r, 1) for r in v]}" for k, v in rates.items())
+        + ")")
+
+    # c. the zoo: every exportable family at its default width, seed 0
+    x = torch.from_numpy(rng.normal(0, 1, (256, 16, 96)).astype(
+        np.float32)).to(cuda)
+    for model_type in ONNX_TYPES:
+        model = Model(config={}, model_name=f"smoke_{model_type}",
+                      model_type=model_type, layer_dim=128, n_blocks=2,
+                      seed=SEED, device=cuda)
+        runtime = OnnxTorchModel(build_onnx(model), device=cuda)
+        if model.stateful:               # a fixed batch of 1, zero state
+            xs = x[:1]
+            zero = torch.zeros(runtime.graph.inputs[1].shape, device=cuda)
+            feed = {"input": xs, "hidden_in": zero, "cell_in": zero}
+        else:
+            xs = x
+            feed = {"features": xs}
+
+        def fwd():
+            out = model.module(xs)
+            return torch.sigmoid(out[0] if model.stateful else out)
+
+        with torch.no_grad():
+            err = (runtime.forward(feed)["score"] - fwd()).abs().max().item()
+            ms_onnx = cuda_ms(lambda: runtime.forward(feed), 10)
+            ms_mod = cuda_ms(fwd, 10)
+        extra = ""
+        if model_type in ("dnn", "crnn"):
+            q = OnnxTorchModel(build_onnx(model, weights_dtype="int8"),
+                               device=cuda)
+            with torch.no_grad():
+                q_err = (q.forward(feed)["score"] - fwd()).abs().max().item()
+            check(q_err <= INT8_TOL, f"{model_type} int8 {q_err}")
+            extra = f"; int8 export vs float32 {q_err:.3g} (bound {INT8_TOL})"
+        log(f"[onnx] {card}: {model_type} at batch {xs.shape[0]}: .onnx vs "
+            f"module max|score| {err:.3g}; forward .onnx {ms_onnx:.4f} ms, "
+            f"module {ms_mod:.4f} ms (CUDA events, mean of 10 after "
+            f"warm-up){extra}")
+        check(err <= ONNX_TOL, f"{model_type} .onnx vs module {err}")
+
+    # d. a stateful graph: hidden_in / cell_in threaded over 50 frames
+    model = Model(config={}, model_name="smoke_sgru",
+                  model_type="streaming_gru", seed=SEED, device=cuda)
+    nww = save_nww(os.path.join(work, "smoke_sgru.nww"), model=model,
+                   config={}, model_name="smoke_sgru")
+    _, nww_model, _ = load_nww(nww, device=cuda)
+    runtime = OnnxTorchModel(build_onnx(model, input_shape=(1, 96)),
+                             device=cuda)
+    frames = torch.from_numpy(rng.normal(0, 1, (1, 50, 96)).astype(
+        np.float32)).to(cuda)
+    hidden = torch.zeros(runtime.graph.inputs[1].shape, device=cuda)
+    cell, carry, worst = hidden.clone(), None, 0.0
+    with torch.no_grad():
+        for t in range(50):
+            out = runtime.forward({"input": frames[:, t:t + 1],
+                                   "hidden_in": hidden, "cell_in": cell})
+            hidden, cell = out["hidden_out"], out["cell_out"]
+            logits, carry = nww_model.module(frames[:, t:t + 1], carry)
+            worst = max(worst, (out["score"] - torch.sigmoid(logits))
+                        .abs().max().item())
+        carry_err = (hidden - torch.stack(carry)).abs().max().item()
+    log(f"[onnx] streaming_gru .onnx, hidden_in / cell_in threaded over 50 "
+        f"one-frame calls vs the .nww with its carry: max|score| "
+        f"{worst:.3g}, max|hidden| {carry_err:.3g} (bound {ONNX_TOL:g})")
+    check(worst <= ONNX_TOL and carry_err <= ONNX_TOL, "stateful .onnx")
+
+    # e. the server on the .onnx: 16 full connections x 20 chunks
+    n_conn, n_chunk = 16, 20
+    audio = np.clip(rng.normal(0.0, 3000.0, (n_conn, n_chunk * 1280)),
+                    -32768, 32767).astype(np.int16)
+    calls = []
+
+    async def drive(server, concurrent):
+        server.start()
+
+        async def client(i):
+            state, out = server.connection(), []
+            for c in range(n_chunk):
+                out.append(json.loads(await server.reply(rv.encode_audio(
+                    audio[i, c * 1280:(c + 1) * 1280]), state))["score"])
+                await asyncio.sleep(0)
+            return out
+        if concurrent:
+            return np.array(await asyncio.gather(*[client(i)
+                                                   for i in range(n_conn)]))
+        return np.array([await client(i) for i in range(n_conn)])
+
+    before = mel_cuda.launches
+    server = rv._ScoringServer(crnn_onnx, "full", device=cuda)
+    check(isinstance(server.session, _OnnxSession), "server session")
+    run_batch = server.session.run_batch
+
+    def counting_run_batch(f):
+        calls.append(len(f))
+        return run_batch(f)
+
+    server.session.run_batch = counting_run_batch
+    batched = asyncio.run(drive(server, True))
+    launches += mel_cuda.launches - before
+    alone = asyncio.run(drive(rv._ScoringServer(crnn_onnx, "full",
+                                                batching=False, device=cuda),
+                              False))
+    scored = int(np.count_nonzero(batched))
+    err = float(np.abs(batched - alone).max())
+    log(f"[onnx] server on the .onnx, {n_conn} full connections x {n_chunk} "
+        f"chunks: {scored} scored requests in {len(calls)} device calls "
+        f"(batch sizes {min(calls)}-{max(calls)}); batched vs alone "
+        f"max|score| {err:.3g} (bound {BATCH_TOL:g})")
+    check(scored == n_conn * (n_chunk - 15), f"{scored} scored replies")
+    check(len(calls) < scored, f"{len(calls)} device calls for {scored}")
+    check(err <= BATCH_TOL, f"server batched vs alone {err}")
+
+    # f. the frontend graphs (numpy, host) with the .onnx classifier (card)
+    t0 = time.perf_counter()
+    export_frontend_onnx(default_encoder_variables(), 32000, "smoke", work)
+    export_s = time.perf_counter() - t0
+    # the graphs are float32: held against AudioFeatures in float32 on the
+    # card; the bf16-mode path (the mel kernel) is logged beside it
+    clip = _tone_clip(SEED + 1)
+    traces = []
+    for kwargs in ({"onnx_frontend": os.path.join(work, "smoke")},
+                   {"compute_dtype": torch.float32}, {}):
+        interp = NanoInterpreter.load_model(crnn_onnx, device=cuda, **kwargs)
+        traces.append(np.array([r.score for r in interp.predict_clip(clip)]))
+    err = float(np.abs(traces[0] - traces[1]).max())
+    err_bf16 = float(np.abs(traces[0] - traces[2]).max())
+    log(f"[onnx] the frontend graphs (exported in {export_s:.3f} s with "
+        f"their check) on the host + the .onnx classifier on the card vs "
+        f"AudioFeatures (float32) on the card: {len(traces[0])} chunks of a "
+        f"tone clip, max|score| {err:.3g} (bound {SCORE_TOL:g}); vs the "
+        f"bf16-mode AudioFeatures (mel kernel) {err_bf16:.3g}")
+    check(len(traces[0]) == n_chunks and (traces[0][15:] > 0).all(),
+          "numpy-frontend scores malformed")
+    check(err <= SCORE_TOL, f"numpy frontend vs AudioFeatures {err}")
+    # g. -T with distillation on the card: the `.onnx` files beside both
+    from nanowakeword_tpu_torch.trainer import run_pipeline
+    for name, shift, rows in (("pos", 1.0, 256), ("neg", 0.0, 512)):
+        np.save(os.path.join(work, f"{name}.npy"), rng.normal(
+            size=(rows, 16, 96)).astype(np.float32) + shift)
+    out = run_pipeline({
+        "model_name": "smoke_td", "output_dir": os.path.join(work, "td"),
+        "model_type": "dnn", "layer_size": 64, "n_blocks": 1, "steps": 20,
+        "early_stopping_patience": 0, "show_training_summary": False,
+        "batch_composition": {"targets": 32, "negatives": 64},
+        "distillation": {"steps": 20, "log_interval": 10,
+                         "weights_dtype": "int8"},
+        "feature_manifest": {
+            "targets": {"t": os.path.join(work, "pos.npy")},
+            "negatives": {"n": os.path.join(work, "neg.npy")}}},
+        train_model=True, distill=True, device=cuda)
+    check_onnx_exports(os.path.dirname(out["artifact"]), "smoke_td",
+                       (".onnx", "_lite.onnx") + FRONTEND_GRAPHS)
+    onnx_vs_nww(out["artifact"], feats[:256], cuda)
+    log(f"[launches] phase 19: mel kernel {launches} (.onnx streaming, "
+        f"batch and server)")
+    log(f"[time] phase 19: {time.perf_counter() - t_phase:.3f} s (host "
+        f"clock)")
+    return launches
+
+
+def onnx_vs_nww(artifact: str, feats, cuda) -> None:
+    """The `.onnx` that -T wrote beside `artifact` scores the features as
+    the `.nww` does, both on the card."""
+    import numpy as np
+    from nanowakeword_tpu_torch.export.artifact import load_nww
+    from nanowakeword_tpu_torch.interpreter.nanointerpreter import (
+        _LocalSession, _OnnxSession)
+
+    header, model, _ = load_nww(artifact, device=cuda)
+    want = _LocalSession(model, header).run_batch(feats)
+    got = _OnnxSession(artifact[:-len(".nww")] + ".onnx", cuda).run_batch(
+        feats)
+    err = float(np.abs(got - want).max())
+    log(f"[onnx] {os.path.basename(artifact)[:-4]}.onnx vs .nww on the card, "
+        f"{len(feats)} feature windows: max|score| {err:.3g} (bound "
+        f"{ONNX_TOL:g})")
+    check(err <= ONNX_TOL, f".onnx vs .nww {err}")
+
+
+FRONTEND_GRAPHS = ("_frontend.onnx", "_mel_stream.onnx", "_embedding.onnx")
+
+
+def check_onnx_exports(model_dir: str, name: str, suffixes) -> None:
+    """The ONNX files a stage writes beside the `.nww`: -T `<name>.onnx`
+    and the three frontend graphs (and `<name>_lite.onnx` where it
+    distilled), the e2e stage the frontend graphs."""
+    missing = [s for s in suffixes
+               if not os.path.exists(os.path.join(model_dir, name + s))]
+    check(not missing, f"{name}: -T did not write {missing}")
+    log(f"[onnx] {name}: -T wrote {', '.join(name + s for s in suffixes)}")
 
 
 def step_card_vs_cpu(config, feats, cuda) -> None:

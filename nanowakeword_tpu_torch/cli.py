@@ -22,10 +22,12 @@ Server
 ------
   python -m nanowakeword_tpu_torch.cli --model my_model.nww
   python -m nanowakeword_tpu_torch.cli --model my_model.nww --pipeline full
+  python -m nanowakeword_tpu_torch.cli --model my_model.onnx
 
 Model info
 ----------
   python -m nanowakeword_tpu_torch.cli --info my_model.nww
+  python -m nanowakeword_tpu_torch.cli --info my_model.onnx
 """
 
 from __future__ import annotations
@@ -107,8 +109,8 @@ def _build_parser() -> argparse.ArgumentParser:
 
     server_group = parser.add_argument_group("Server (--model required)")
     server_group.add_argument("--model", metavar="PATH", default=None,
-                              help="Wake word .nww model; starts the "
-                                   "RemoteVerifier server.")
+                              help="Wake word .nww or .onnx model; starts "
+                                   "the RemoteVerifier server.")
     server_group.add_argument("--pipeline", default="verifier_only",
                               choices=["verifier_only", "embedding", "full"],
                               metavar="MODE",
@@ -155,7 +157,8 @@ def _build_parser() -> argparse.ArgumentParser:
                         help="torch device for training and serving "
                              "(default: cuda).")
     parser.add_argument("--info", metavar="MODEL", default=None,
-                        help="Show metadata for a .nww model file and exit.")
+                        help="Show metadata for a .nww or .onnx model file "
+                             "and exit.")
     return parser
 
 
@@ -209,14 +212,57 @@ def _run_server(args):
           data_parallel=args.data_parallel, device=args.device)
 
 
+def _run_info_onnx(model_path: str):
+    """Model info for an exported .onnx file, read with the bundled protobuf
+    parser (no onnx or onnxruntime)."""
+    import numpy as np
+
+    from nanowakeword_tpu_torch.export import onnx_proto as P
+
+    parsed = P.load_model(model_path)
+    g = parsed.graph
+    # weight-only int8 graphs keep kernels as int8 initializers; their
+    # per-channel scale vectors (DequantizeLinear's 2nd input) are no params
+    scale_names = {nd.inputs[1] for nd in g.nodes
+                   if nd.op_type == "DequantizeLinear"}
+    n_params = int(sum(np.prod(a.shape)
+                       for name, a in g.initializers.items()
+                       if a.dtype in (np.float32, np.int8)
+                       and name not in scale_names))
+    quantized = any(a.dtype == np.int8 for a in g.initializers.values())
+    size_kb = os.path.getsize(model_path) / 1024
+    name = os.path.splitext(os.path.basename(model_path))[0]
+    ops = sorted({nd.op_type for nd in g.nodes})
+
+    print(f"\n  Model         {name}")
+    print(f"  Path          {model_path}")
+    is_lite = name.endswith("_lite")
+    print(f"  Type          "
+          f"{'lite / gate model' if is_lite else 'full / verifier model'}")
+    print(f"  File size     {size_kb:.1f} KB")
+    print(f"  Parameters    {n_params:,}")
+    print(f"  Format        ONNX (opset {parsed.opsets.get('', '?')}, "
+          f"ir {parsed.ir_version}, producer {parsed.producer})")
+    if quantized:
+        print("  Weights       weight-only int8 (per-channel "
+              "DequantizeLinear)")
+    print(f"  Graph         {len(g.nodes)} nodes: {', '.join(ops)}")
+    print("\n  Inputs")
+    for vi in g.inputs:
+        print(f"    {vi.name:<20} shape={vi.shape}")
+    print("\n  Outputs")
+    for vi in g.outputs:
+        print(f"    {vi.name:<20} shape={vi.shape}  (sigmoid probability)")
+    print()
+
+
 def _run_info(model_path: str):
     if not os.path.exists(model_path):
         print(f"Error: model not found at '{model_path}'")
         sys.exit(1)
     if model_path.endswith(".onnx"):
-        raise NotImplementedError(
-            "--info for .onnx models is not ported to PyTorch yet "
-            "(ROADMAP.md)")
+        _run_info_onnx(model_path)
+        return
 
     from nanowakeword_tpu_torch.export.artifact import read_nww_header
 

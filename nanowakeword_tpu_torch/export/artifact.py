@@ -1,7 +1,8 @@
-"""Reader and writer of the `.nww` model artifact.
+"""Reader and writer of the `.nww` model artifact, and the ONNX export step.
 
 The counterpart of `save_nww`, `export_model`, `export_params_msgpack`,
-`read_nww_header` and `load_nww` in `nanowakeword_tpu/export/artifact.py`.
+`export_onnx_model`, `read_nww_header` and `load_nww` in
+`nanowakeword_tpu/export/artifact.py`.
 An `.nww` file is the 4-byte magic `NWW2`, a little-endian u32 header
 length, a JSON header that says how to rebuild the model, and a flax
 msgpack payload with the
@@ -26,7 +27,7 @@ from nanowakeword_tpu_torch.convert import (encoder_state_dict_from_flax,
 from nanowakeword_tpu_torch.utils.flax_msgpack import (Bfloat16Bits,
                                                        msgpack_restore,
                                                        msgpack_serialize)
-from nanowakeword_tpu_torch.utils.logger import print_info
+from nanowakeword_tpu_torch.utils.logger import print_error, print_info
 
 MAGIC = b"NWW2"
 FORMAT_VERSION = 2
@@ -268,3 +269,29 @@ def export_params_msgpack(model, model_name: str, output_dir: str) -> str:
     with open(path, "wb") as f:
         f.write(msgpack_serialize(model.variables))
     return path
+
+
+def export_onnx_model(model, input_shape, config, model_name: str,
+                      output_dir: str,
+                      weights_dtype: Optional[str] = None) -> Optional[str]:
+    """The ONNX interchange export, `<output_dir>/<model_name>.onnx`
+    (export/onnx_export.py) -> its path, or None with a logged message
+    where a model does not export (a `custom` module, or a family beyond
+    SUPPORTED_TYPES). int8 is the only quantized ONNX form: any other
+    `weights_dtype` (bfloat16 is `.nww`-only) writes float32."""
+    del config
+    from nanowakeword_tpu_torch.export.onnx_export import (SUPPORTED_TYPES,
+                                                           export_onnx)
+    if model.model_type not in SUPPORTED_TYPES + ("custom", "custom_model"):
+        print_error(f"ONNX export covers {SUPPORTED_TYPES} plus 'custom' "
+                    f"models; '{model.model_type}' deploys via the .nww "
+                    "artifact (served on the torch device).")
+        return None
+    path = os.path.join(output_dir, model_name + ".onnx")
+    try:
+        return export_onnx(model, path, input_shape=input_shape,
+                           weights_dtype=("int8" if weights_dtype == "int8"
+                                          else None))
+    except NotImplementedError as e:
+        print_error(f"ONNX export skipped: {e}")
+        return None

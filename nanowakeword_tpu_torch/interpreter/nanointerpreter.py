@@ -18,8 +18,12 @@ the same step runs eagerly. With a remote session among the models,
 `predict()` takes the general path: one `session.run` per model, the
 verifier skipped while the gate is low.
 
-Not ported (ROADMAP.md): `.onnx` models and the ONNX frontend; each raises
-NotImplementedError.
+`.onnx` models load as `_OnnxSession`s (export/onnx_torch.py, on the same
+device); like a remote session they take the general path, the eager
+feature step (the mel kernel on a CUDA device) and one `session.run` per
+model. `onnx_frontend=` swaps the feature frontend for the exported
+`_mel_stream` / `_embedding` graphs run by the numpy evaluator on the host
+(export/frontend.py::OnnxStreamingFrontend).
 """
 
 from __future__ import annotations
@@ -139,6 +143,64 @@ class _LocalSession:
         """[B, T, F] -> [B] probabilities (stateless models; the server's
         dynamic batching path)."""
         return self.scores(self._tensor(feats)).cpu().numpy()
+
+
+class _OnnxSession:
+    """A session over an exported `.onnx` graph on one torch device: the
+    interchange-format twin of _LocalSession, with the same surface. The
+    graph ends in a Sigmoid, so `run` returns the probability directly.
+
+    A graph with `hidden_in` / `cell_in` inputs is stateful: its carry is
+    the pair of tensors it feeds there, which stays on the device."""
+
+    def __init__(self, path: str, device="cuda"):
+        from nanowakeword_tpu_torch.export.onnx_torch import OnnxTorchModel
+        self._model = OnnxTorchModel(path, device=device)
+        self.device = self._model.device
+        inputs = {vi.name: vi.shape for vi in self._model.graph.inputs}
+        self._state_shapes = {k: [int(d) for d in inputs[k]]
+                              for k in ("hidden_in", "cell_in")
+                              if k in inputs}
+        self.stateful = "hidden_in" in self._state_shapes
+
+    @property
+    def feature_length(self) -> int:
+        # input [batch, T, 96], as the reference reads it off an ORT session
+        return int(self._model.input_shape[1])
+
+    def _scores(self, feats: np.ndarray, carry=None):
+        """-> (score tensor, new carry or None), on the device."""
+        feats = np.asarray(feats, np.float32)
+        if feats.ndim == 2:
+            feats = feats[None]
+        feed = {self._model.input_name: self._model.tensor(feats)}
+        if not self.stateful:
+            return self._model.forward(feed)["score"], None
+        if carry is None:
+            carry = tuple(torch.zeros(self._state_shapes[k],
+                                      device=self.device)
+                          for k in ("hidden_in", "cell_in"))
+        feed["hidden_in"], feed["cell_in"] = carry
+        out = self._model.forward(feed)
+        return out["score"], (out["hidden_out"], out["cell_out"])
+
+    def run(self, feats: np.ndarray, carry=None):
+        """[1, T, F] features -> (probability, new carry); the carry of a
+        stateless graph is None."""
+        score, new_carry = self._scores(feats, carry)
+        return float(score.reshape(-1)[0]), new_carry
+
+    def run_batch(self, feats: np.ndarray) -> np.ndarray:
+        """[B, T, F] -> [B] probabilities. The graph's batch dimension
+        decides: a symbolic one scores the batch in one call, a fixed 1
+        row by row."""
+        feats = np.asarray(feats, np.float32)
+        batch = self._model.input_shape[0]
+        if isinstance(batch, str):
+            return self._scores(feats)[0].cpu().numpy().reshape(len(feats))
+        if batch != 1:
+            raise ValueError(f"graph input has a fixed batch of {batch}")
+        return np.asarray([self.run(f)[0] for f in feats], np.float32)
 
 
 def _tree_tensors(tree) -> list:
@@ -267,10 +329,9 @@ class NanoInterpreter:
             if model_key in self.models:
                 logging.warning(f"Model '{model_key}' already loaded. Skipping.")
                 continue
-            if not mdl_path.endswith(EXTENSION):
-                raise NotImplementedError(
-                    f"'{mdl_path}': only .nww models are ported to PyTorch; "
-                    ".onnx models are still to be ported (ROADMAP.md)")
+            if mdl_path.endswith(".onnx"):
+                self._register(model_key, _OnnxSession(mdl_path, device))
+                continue
             header, model, enc = load_nww(mdl_path, device=device)
             self._register(model_key, _LocalSession(model, header))
             if encoder is None:
@@ -537,9 +598,20 @@ class NanoInterpreter:
 
     def _setup_components(self, **kwargs):
         self._setup_gates(kwargs)
-        if kwargs.pop("onnx_frontend", None) is not None:
-            raise NotImplementedError(
-                "the ONNX frontend is not ported to PyTorch yet (ROADMAP.md)")
+        onnx_frontend = kwargs.pop("onnx_frontend", None)
+        if onnx_frontend is not None:
+            # the exported `_mel_stream` / `_embedding` pair run by the
+            # numpy evaluator on the host: (mel_path, emb_path) or a path
+            # prefix such as "<dir>/<model_name>"
+            from nanowakeword_tpu_torch.export.frontend import \
+                OnnxStreamingFrontend
+            if isinstance(onnx_frontend, (tuple, list)):
+                mel_path, emb_path = onnx_frontend
+            else:
+                mel_path = f"{onnx_frontend}_mel_stream.onnx"
+                emb_path = f"{onnx_frontend}_embedding.onnx"
+            self.preprocessor = OnnxStreamingFrontend(mel_path, emb_path)
+            return
         self.preprocessor = AudioFeatures(**kwargs)
 
     def _setup_components_no_preprocessor(self, **kwargs):
@@ -550,8 +622,9 @@ class NanoInterpreter:
 
     def _build_fused_step(self) -> Optional[_FusedStep]:
         """The one-call step over all models, or None (general path) when
-        there is no preprocessor, no model, or a session that is not local."""
-        if self.preprocessor is None or not self.models:
+        the preprocessor is not AudioFeatures, or there is no model, or a
+        session that is not local (remote, or `.onnx`)."""
+        if not isinstance(self.preprocessor, AudioFeatures) or not self.models:
             return None
         if any(not isinstance(s, _LocalSession)
                for s in self.models.values()):

@@ -11,11 +11,12 @@ protocol (a client of either package talks to a server of the other):
     0xF0 token exchange (server_security)
     response: JSON {"score": <float>}
 
-The hosted model is a `.nww` artifact evaluated on the device; score
-requests of many concurrent clients coalesce into one batched forward
-(`_DynamicBatcher`). A "full"-pipeline connection keeps its own streaming
-feature state (`AudioFeatures`, the mel kernel on a CUDA device) over ONE
-encoder module that all connections share. `_ScoringServer` holds all of
+The hosted model is a `.nww` artifact or an exported `.onnx` graph
+(`_OnnxSession`), evaluated on the device; score requests of many
+concurrent clients coalesce into one batched forward (`_DynamicBatcher`).
+A "full"-pipeline connection keeps its own streaming feature state
+(`AudioFeatures`, the mel kernel on a CUDA device) over ONE encoder module
+that all connections share. `_ScoringServer` holds all of
 that and answers one message at a time through `reply()`, with no socket:
 `serve()`'s WebSocket handler calls it, and so can a test or a benchmark.
 
@@ -30,6 +31,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import struct
 from typing import Optional, Union
 
@@ -192,17 +194,17 @@ class _ScoringServer:
         import torch
 
         from nanowakeword_tpu_torch.export.artifact import load_nww
-        from nanowakeword_tpu_torch.interpreter.nanointerpreter import \
-            _LocalSession
+        from nanowakeword_tpu_torch.interpreter.nanointerpreter import (
+            _LocalSession, _OnnxSession)
 
         if pipeline not in _VALID_PIPELINES:
             raise ValueError(f"Invalid pipeline '{pipeline}'. "
                              f"Choose from: {sorted(_VALID_PIPELINES)}")
-        if model_path.endswith(".onnx"):
-            raise NotImplementedError(
-                f"'{model_path}': serving .onnx models is not ported to "
-                "PyTorch yet (ROADMAP.md); serve the .nww artifact")
-        if data_parallel:
+        onnx = model_path.endswith(".onnx")
+        if data_parallel and onnx:
+            logger.info(".onnx serving is single-device; ignoring "
+                        "--data-parallel (use the .nww artifact to shard)")
+        elif data_parallel:
             logger.info("data_parallel requested: serving is single-device "
                         "in the PyTorch port (multi-device is still to be "
                         "ported, ROADMAP.md)")
@@ -214,9 +216,17 @@ class _ScoringServer:
 
         self.pipeline = pipeline
         self.device = torch.device(device)
-        header, model, encoder = load_nww(model_path, device=self.device)
-        self.session = _LocalSession(model, header)
-        self.model_name = header.get("model_name", "model")
+        if onnx:
+            # an .onnx graph bundles no encoder: the frontend takes the
+            # bundled one
+            self.session = _OnnxSession(model_path, self.device)
+            encoder = None
+            self.model_name = os.path.splitext(
+                os.path.basename(model_path))[0]
+        else:
+            header, model, encoder = load_nww(model_path, device=self.device)
+            self.session = _LocalSession(model, header)
+            self.model_name = header.get("model_name", "model")
         self.n_frames = self.session.feature_length
         self.max_batch = max_batch
         self.batch_wait_ms = batch_wait_ms
@@ -590,7 +600,8 @@ def main(argv=None):
                     "inference server",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     parser.add_argument("--model", required=True,
-                        help="Path to the wake word .nww model artifact")
+                        help="Path to the wake word .nww model artifact or "
+                             "exported .onnx graph")
     parser.add_argument("--pipeline", default=PIPELINE_VERIFIER_ONLY,
                         choices=sorted(_VALID_PIPELINES))
     parser.add_argument("--host", default="0.0.0.0")

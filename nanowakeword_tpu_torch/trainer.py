@@ -10,13 +10,14 @@ the project directory layout (`features/`, `training_artifacts/`, `model/`;
 a versioned default name), the manifest-driven transform stage,
 dataset/sampler construction, training (the host loop by default, the
 device-cached loop with `device_cache: {enabled: true}`, or end-to-end from
-raw audio with `end_to_end: {enabled: true}`), the exports (`.nww`, raw
-parameters, the user's export hook), the training graph, distillation
-(after training, where `distillation.enabled` defaults to true and a
-failure is logged and skipped as the reference does, or standalone from the
-exported `.nww`) and the training journal. `run_pipeline` takes the config
-as a dict; the command line (`train`) wraps it and is the only place that
-reads YAML. ONNX export is not ported yet (ROADMAP.md).
+raw audio with `end_to_end: {enabled: true}`), the exports (`.nww`, `.onnx`
+and the three feature-frontend graphs, raw parameters, the user's export
+hook; an ONNX export that fails is logged and skipped), the training graph,
+distillation (after training, where `distillation.enabled` defaults to true
+and a failure is logged and skipped as the reference does, or standalone
+from the exported `.nww`, which writes the `_lite.nww` alone) and the
+training journal. `run_pipeline` takes the config as a dict; the command
+line (`train`) wraps it and is the only place that reads YAML.
 """
 
 from __future__ import annotations
@@ -167,21 +168,38 @@ def _export_custom(model, input_shape, config, model_name: str,
                       f"error: {e}")
 
 
+def _export_frontend(encoder_vars, clip_samples: int, model_name: str,
+                     model_save_dir: str, what: str) -> None:
+    """The three feature-frontend graphs (export/frontend.py) beside the
+    model; a failure is logged, not raised."""
+    from nanowakeword_tpu_torch.export.frontend import export_frontend_onnx
+    try:
+        export_frontend_onnx(encoder_vars, clip_samples, model_name,
+                             model_save_dir)
+        print_info(f"Feature-frontend ONNX graphs {what}exported "
+                   "(_frontend / _mel_stream / _embedding).")
+    except Exception as e:  # noqa: BLE001
+        print_warning(f"Frontend ONNX export failed (non-fatal): {e}")
+
+
 def train_stage(config, model_name: str, artifacts_dir: str,
                 model_save_dir: str, device, resume: Optional[str] = None,
                 distill: bool = False, dynamic_table=None) -> dict:
     """-T: build the data, train a Model, draw its training graph, export
-    the `.nww` artifact (with the bundled encoder), then distill and export
-    the lite gate unless `distillation.enabled` is false and `distill` was
-    not asked for (a failure there is logged and skipped), then the raw
-    parameters and the user's export hook.
+    the `.nww` artifact (with the bundled encoder), the `.onnx` graph and
+    the three frontend graphs, then distill and export the lite gate
+    (`_lite.nww` and `_lite.onnx`) unless `distillation.enabled` is false
+    and `distill` was not asked for (a failure there is logged and
+    skipped), then the raw parameters and the user's export hook.
     -> {"model", "dataset" (with the final hardness), "artifact",
     "lite_artifact" (path or None)}."""
     from nanowakeword_tpu_torch.data.features import \
         default_encoder_variables
     from nanowakeword_tpu_torch.export.artifact import (check_weights_dtype,
                                                         export_model,
+                                                        export_onnx_model,
                                                         export_params_msgpack)
+    from nanowakeword_tpu_torch.export.onnx_export import SUPPORTED_TYPES
     from nanowakeword_tpu_torch.models.model import Model
     from nanowakeword_tpu_torch.train.trainer import Trainer
 
@@ -215,6 +233,18 @@ def train_stage(config, model_name: str, artifacts_dir: str,
            "artifact": export_model(best, input_shape, config, model_name,
                                     model_save_dir,
                                     encoder_variables=encoder_vars)}
+    if best.model_type in SUPPORTED_TYPES:
+        try:
+            export_onnx_model(best, input_shape, config, model_name,
+                              model_save_dir)
+        except Exception as e:  # noqa: BLE001
+            print_warning(f"ONNX export failed (non-fatal): {e}")
+    # the frontend graphs let the exported classifier run from raw audio
+    # without this package; the clip length is the JAX package's formula
+    clip_samples = int(config.get(
+        "total_length", ((input_shape[0] - 1) * 8 + 76 + 4) * 160))
+    _export_frontend(encoder_vars, clip_samples, model_name, model_save_dir,
+                     "")
     if should_distill:
         try:
             print_step_header("Distillation: Building Lite Model")
@@ -225,6 +255,12 @@ def train_stage(config, model_name: str, artifacts_dir: str,
                 student, input_shape, config, model_name + "_lite",
                 model_save_dir, encoder_variables=encoder_vars,
                 weights_dtype=dist_cfg.get("weights_dtype"))
+            try:
+                export_onnx_model(student, input_shape, config,
+                                  model_name + "_lite", model_save_dir,
+                                  weights_dtype=dist_cfg.get("weights_dtype"))
+            except Exception as e:  # noqa: BLE001
+                print_warning(f"ONNX export of lite model failed: {e}")
             _export_custom(student, input_shape, config, model_name + "_lite",
                            model_save_dir)
             print_info(f"Lite model saved alongside main model in: "
@@ -242,7 +278,8 @@ def e2e_stage(config, e2e_cfg, model_name: str, artifacts_dir: str,
               dynamic_table=None) -> dict:
     """-T with `end_to_end: {enabled: true}`: train the encoder and the
     classifier jointly from raw audio (train/e2e.py), then export the
-    classifier with the TRAINED encoder bundled in the `.nww`. Config:
+    classifier with the TRAINED encoder bundled in the `.nww`, and the three
+    frontend graphs of the trained encoder. Config:
 
         end_to_end:
           enabled: true
@@ -316,8 +353,8 @@ def e2e_stage(config, e2e_cfg, model_name: str, artifacts_dir: str,
     artifact = export_model(trained, input_shape, config, model_name,
                             model_save_dir, encoder_variables=encoder_vars)
     export_params_msgpack(trained, model_name, model_save_dir)
-    print_warning("Feature-frontend ONNX export skipped: ONNX export is not "
-                  "ported to PyTorch yet (ROADMAP.md).")
+    _export_frontend(encoder_vars, clip_samples, model_name, model_save_dir,
+                     "(trained encoder) ")
     _export_custom(trained, input_shape, config, model_name, model_save_dir)
     print_info(f"End-to-end model (with trained encoder) exported to "
                f"{model_save_dir}")

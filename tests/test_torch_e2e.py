@@ -283,6 +283,10 @@ def test_e2e_stage_exports_the_trained_encoder(corpus, tmp_path):
     path = out["artifact"]
     assert os.path.exists(path) and out["lite_artifact"] is None
     assert os.path.exists(os.path.join(os.path.dirname(path), "e2e.msgpack"))
+    # the frontend graphs of the trained encoder beside it
+    model_dir = os.path.dirname(path)
+    for suffix in ("_frontend", "_mel_stream", "_embedding"):
+        assert os.path.exists(os.path.join(model_dir, f"e2e{suffix}.onnx"))
 
     header, _, encoder_vars = jax_load_nww(path)
     assert header["has_encoder"] and header["input_shape"] == [CONTEXT, 96]
@@ -292,6 +296,14 @@ def test_e2e_stage_exports_the_trained_encoder(corpus, tmp_path):
            trained["params"], 0.0)
     asset = pretrained_encoder_variables()["params"]["Conv_0"]["kernel"]
     assert np.abs(trained["params"]["Conv_0"]["kernel"] - asset).max() > 0
+    # the embedding graph holds the trained first convolution, in the
+    # ONNX layout [out, in, kh, kw]
+    from nanowakeword_tpu_torch.export import onnx_proto
+    graph = onnx_proto.load_model(os.path.join(model_dir,
+                                               "e2e_embedding.onnx")).graph
+    np.testing.assert_array_equal(
+        graph.initializers[graph.nodes[1].inputs[1]],
+        trained["params"]["Conv_0"]["kernel"].transpose(3, 2, 0, 1))
 
     clip = (formant_synthesize("hey nano", seed=9) * 32767).astype(np.int16)
     ours = NanoInterpreter.load_model(path, device="cpu").predict_clip(clip)

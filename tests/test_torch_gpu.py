@@ -2,8 +2,9 @@
 versions, the serving path on the card against the same port on the CPU
 (batch, the streaming cascade through the replayed one-call step, a
 stateful model, the server's scoring path), the augmentation chain
-launching the mix kernel, and end-to-end training's module and step, whose
-forward launches the mel kernel.
+launching the mix kernel, end-to-end training's module and step, whose
+forward launches the mel kernel, and `.onnx` graphs on the card: the torch
+runtime against the CPU, and an `.onnx` cascade behind the mel kernel.
 
 Every test here is `gpu`-marked and skips without a CUDA device. On a
 machine with one: `python -m pytest -m gpu tests/test_torch_gpu.py -q`.
@@ -340,6 +341,61 @@ def test_zoo_forward_card_matches_cpu(rng, cuda, model_type):
     on_cpu = _zoo_model(model_type, "cpu")(x).numpy()
     assert on_card.shape == (8, 1) and np.isfinite(on_card).all()
     np.testing.assert_allclose(on_card, on_cpu, rtol=0, atol=ZOO_TOL)
+
+
+ONNX_TOL = 1e-5     # an .onnx graph's f32 scores, card vs CPU (TF32 off)
+
+
+@pytest.mark.parametrize("model_type", ["dnn", "crnn", "conformer",
+                                        "bcresnet", "lstm", "streaming_gru"])
+def test_onnx_runtime_card_matches_cpu(rng, cuda, model_type):
+    """The port's exported graph run by OnnxTorchModel on the card and on
+    the CPU; its Conv nodes run with cuDNN's TF32 off."""
+    from nanowakeword_tpu_torch.export import onnx_proto as P
+    from nanowakeword_tpu_torch.export.onnx_export import build_onnx
+    from nanowakeword_tpu_torch.export.onnx_torch import OnnxTorchModel
+
+    data = build_onnx(_zoo_model(model_type, "cpu", crnn_cnn_channels=[8, 16],
+                                 crnn_rnn_type="gru"))
+    feed = {vi.name: rng.normal(0, 1, [8 if isinstance(d, str) else d
+                                       for d in vi.shape]).astype(np.float32)
+            for vi in P.load_model(data).graph.inputs}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True      # the library's default
+    try:
+        on_card = OnnxTorchModel(data, device=cuda).run(None, feed)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    on_cpu = OnnxTorchModel(data, device="cpu").run(None, feed)
+    for a, b in zip(on_card, on_cpu):
+        assert np.isfinite(a).all()
+        np.testing.assert_allclose(a, b, rtol=0, atol=ONNX_TOL)
+
+
+def test_onnx_cascade_on_the_card_launches_the_mel_kernel(cuda, tmp_path):
+    """The shipped cascade exported to `.onnx`: on the card it takes the
+    general path, the mel kernel once per chunk, and scores as the `.nww`
+    cascade on the card does."""
+    from nanowakeword_tpu_torch.export.artifact import export_onnx_model
+
+    for name in ("hey_nano_crnn", "hey_nano_crnn_lite"):
+        _, model, _ = load_nww(os.path.join(ROOT, "campaign", name + ".nww"),
+                               device="cpu")
+        export_onnx_model(model, model.input_shape, {}, name, str(tmp_path))
+    clip = np.clip(np.random.default_rng(5).normal(0, 3000, 16000 * 3),
+                   -32768, 32767).astype(np.int16)
+    traces = []
+    for path in (str(tmp_path / "hey_nano_crnn.onnx"), CRNN):
+        interp = NanoInterpreter.load_model(path, cascade=True,
+                                            gate_threshold=0.0, device=cuda)
+        before = mel_cuda.launches
+        out = interp.predict_clip(clip)
+        traces.append((np.array([[r.gate_score, r.score] for r in out]),
+                       mel_cuda.launches - before, interp._fused_step))
+    (onnx, launches, step), (nww, _, _) = traces
+    assert step is None and launches == 37
+    np.testing.assert_allclose(onnx, nww, rtol=0, atol=ONNX_TOL)
+    assert (onnx[15:] > 0).all()
 
 
 def _training_data(tmp_path):

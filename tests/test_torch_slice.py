@@ -2,8 +2,8 @@
 
 Batch scoring (AudioFeatures.embed_clips) and the streaming cascade
 (NanoInterpreter.predict_clip) run in both packages on the same seeded
-audio. Also: the port imports no JAX, a CPU tensor launches no kernel, and
-an unsupported device raises.
+audio. Also: the port imports no JAX, a CPU tensor launches no kernel, an
+unsupported device raises, and the `.onnx` options work.
 """
 
 import os
@@ -164,27 +164,54 @@ def test_unsupported_device_raises():
         mel_cuda.mel_frontend_cuda(torch.zeros(1600))
 
 
-def _load_onnx_model(tmp_path):
-    path = tmp_path / "m.onnx"
-    path.write_bytes(b"")
-    NanoInterpreter.load_model(str(path), device="cpu")
+@pytest.fixture(scope="module")
+def crnn_onnx(tmp_path_factory):
+    """The shipped CRNN exported to `.onnx` by the port."""
+    from nanowakeword_tpu_torch.export.artifact import (export_onnx_model,
+                                                        load_nww)
+    root = tmp_path_factory.mktemp("crnn_onnx")
+    _, model, _ = load_nww(CRNN, device="cpu")
+    return export_onnx_model(model, model.input_shape, {}, "m", str(root))
 
 
-def _load_onnx_frontend(tmp_path):
-    NanoInterpreter.load_model(CRNN, device="cpu",
-                               onnx_frontend=str(tmp_path / "m"))
+def _load_onnx_model(path):
+    interp = NanoInterpreter.load_model(path, device="cpu")
+    assert interp.model_feature_length == {"m": 16}
+    return interp.predict_clip(_speech_like(4, 16000 * 2))[-1].score
 
 
-def _serve_onnx_model(tmp_path):
-    from nanowakeword_tpu_torch.interpreter.remote_verifier import serve
-    serve(str(tmp_path / "m.onnx"), device="cpu")
+def _load_onnx_frontend(path):
+    from nanowakeword_tpu_torch.data.features import \
+        default_encoder_variables
+    from nanowakeword_tpu_torch.export.frontend import export_frontend_onnx
+    root = os.path.dirname(path)
+    export_frontend_onnx(default_encoder_variables(), 16000, "m", root)
+    interp = NanoInterpreter.load_model(CRNN, device="cpu",
+                                        onnx_frontend=os.path.join(root, "m"))
+    return interp.predict_clip(_speech_like(4, 16000 * 2))[-1].score
+
+
+def _serve_onnx_model(path):
+    import asyncio
+    import json
+
+    from nanowakeword_tpu_torch.interpreter import remote_verifier as rv
+    server = rv._ScoringServer(path, device="cpu")
+    feats = np.random.default_rng(4).normal(0, 1, (1, 16, 96))
+
+    async def reply():
+        server.start()          # the batcher's task
+        return await server.reply(rv.encode_features(
+            feats.astype(np.float32)), None)
+
+    return json.loads(asyncio.run(reply()))["score"]
 
 
 @pytest.mark.parametrize("call", [_load_onnx_model, _load_onnx_frontend,
                                   _serve_onnx_model])
-def test_unported_options_raise(call, tmp_path):
-    """What the interpreter and the server still do not take: `.onnx`
-    models and the ONNX frontend. (The VAD gate, noise reduction and remote
-    verifiers are ported: tests/test_torch_interpreter.py.)"""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        call(tmp_path)
+def test_unported_options_raise(call, crnn_onnx):
+    """The ONNX options of the interpreter and the server score a clip or a
+    request: an `.onnx` model, the ONNX frontend, and an `.onnx` behind the
+    server (held against the JAX package in tests/test_torch_onnx.py)."""
+    score = call(crnn_onnx)
+    assert 0.0 < score < 1.0
