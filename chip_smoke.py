@@ -31,12 +31,18 @@ served on the card against the CPU. Then ONNX on the card: the shipped
 cascade exported to `.onnx` and streamed against the `.nww` cascade, batch
 scoring, every family's graph against its module, a stateful graph's
 threaded state, the server on an `.onnx`, the numpy frontend graphs, and
-the `.onnx` files that `-T`, `-d` and end-to-end training write. It times
-both kernels against their plain versions, batch scoring, streaming
-latency (eager, replayed and `.onnx`), the server's requests per second,
-the transform stage, training steps of both loops in float32 and bf16,
-each family's forward (module and `.onnx`), distillation steps, clip
-generation and end-to-end steps.
+the `.onnx` files that `-T`, `-d` and end-to-end training write. Last,
+encoder pretraining: the recipe of the bundled v4 encoder at full width
+and cut depth through `pretrain_encoder` (the mel kernel in every step),
+three steps on the card against the CPU, a resumed run at the mix kernel's
+clip length against a straight one, the transfer eval of the bundled asset
+against the JAX package's gates, the new asset served, and a custom module
+exported to `.onnx` through torch.fx and served. It times both kernels
+against their plain versions, batch scoring, streaming latency (eager,
+replayed and `.onnx`), the server's requests per second, the transform
+stage, training steps of both loops in float32 and bf16, each family's
+forward (module and `.onnx`), distillation steps, clip generation,
+end-to-end steps and pretraining steps.
 
 Phases print progress lines. Every check raises on failure, so any failed
 phase exits non-zero. The line before the last is a JSON object with the
@@ -73,6 +79,7 @@ BATCH_TOL = 1e-5    # a request scored in a batch vs alone (the libraries
 RESUME_TOL = 1e-5   # a resumed run vs the straight run, if not bit for bit
 STEP_RTOL = 1e-4    # one training step, card vs CPU: loss and grad norm
 WEIGHT_TOL = 1e-5   # ... and the updated weights and BatchNorm statistics
+NORM64_RTOL = 1e-5  # a pretraining step's grad norm, card (float32) vs float64
 # the shipped configuration (campaign/config_hey_nano.yaml)
 SHIPPED_AUGMENTATION = {"min_snr_in_db": 5.0, "max_snr_in_db": 30.0,
                         "pitch_prob": 0.5, "gain_prob": 1.0, "rir_prob": 0.5}
@@ -362,6 +369,9 @@ def main() -> int:
     # -- 19. ONNX on the card ---------------------------------------------------
     with tempfile.TemporaryDirectory(prefix="nww_smoke_") as work:
         onnx_launches = onnx_phase(rng, cuda, card, work)
+    # -- 20. encoder pretraining, and a custom module's .onnx --------------------
+    with tempfile.TemporaryDirectory(prefix="nww_smoke_") as work:
+        pretrain = pretrain_phase(cuda, card, work)
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "nanowakeword_tpu"))
@@ -373,7 +383,7 @@ def main() -> int:
         "source": "nanowakeword_tpu_torch/csrc/mel_frontend.cu",
         "replaces": "nanowakeword_tpu/ops/mel_pallas.py:269",
         "launches": (main_launches + serving_launches + e2e["mel"]
-                     + onnx_launches),
+                     + onnx_launches + pretrain["mel"]),
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -385,7 +395,7 @@ def main() -> int:
         "route": "cuda",
         "source": "nanowakeword_tpu_torch/csrc/mix_gain.cu",
         "replaces": "nanowakeword_tpu/ops/mix_pallas.py:93",
-        "launches": train["mix_launches"] + e2e["mix"],
+        "launches": train["mix_launches"] + e2e["mix"] + pretrain["mix"],
         "max_abs_err": mix["max_err"],
         "ms": mix["ms"],
         "plain_ms": mix["plain_ms"],
@@ -1512,6 +1522,476 @@ def e2e_phase(rng, cuda, card, work) -> dict:
         + ", ".join(f"{k} {v:.3f} s" for k, v in seconds.items())
         + " (host clock)")
     return launches
+
+
+# The bundled v4 encoder's recipe (its sidecar, speech_encoder_v4.msgpack
+# .json) at full width: wide128, batch 256, 1.5 s clips, union channels,
+# half the vocabulary confusable twins, SupCon 0.5 in groups of 4, the
+# pretraining augmentation (EQ 0.5), 240 noise and 64 impulse clips. Cut in
+# depth: 128 of 3072 words, 12 of 48 speakers, 300 of 12000 steps.
+PRETRAIN_V4 = {"vocab_size": 128, "variants_per_word": 12,
+               "heldout_variants": 4, "clip_samples": 24000,
+               "noise_clips": 240, "rir_clips": 64, "batch_size": 256,
+               "steps": 300, "encoder_arch": "wide128", "channels": "union",
+               "confusable_fraction": 0.5, "contrastive_weight": 0.5,
+               "contrastive_group": 4}
+V4_CLIPS = 3072 * 48            # the v4 corpus: 3072 words x 48 speakers
+V4_BUILD_NOTE = "formant 0.847 / resonator 0.806 / fx 0.743"
+EMBED_TOL = 1e-3    # pooled embeddings card vs CPU (the score bar)
+
+
+def pretrain_phase(cuda, card, work) -> dict:
+    """Phase 20: encoder pretraining on the card. (a) the corpus of the v4
+    recipe cut in depth, (b) 300 steps at full width through
+    `pretrain_encoder` (the mel kernel in every step), profiled over 20
+    steps, (c) three AdamW steps on the card against the same steps in
+    float64 on the CPU, on one augmented batch, (d)
+    resume at 16000 samples (the mix kernel's length) bit for bit, (e) the
+    transfer eval of the bundled v4 asset against the JAX package's gates,
+    (f) the asset written in (b) served by AudioFeatures, (g) a custom
+    module's `.onnx` (torch.fx) served on the card. -> the launches."""
+    import numpy as np
+    import torch
+    from nanowakeword_tpu_torch import AudioFeatures, NanoInterpreter
+    from nanowakeword_tpu_torch.convert import encoder_state_dict_from_flax
+    from nanowakeword_tpu_torch.data.features import \
+        pretrained_encoder_variables
+    from nanowakeword_tpu_torch.export.frontend import seeded_audio
+    from nanowakeword_tpu_torch.ops import mel_cuda, mix_cuda
+    from nanowakeword_tpu_torch.tools.profile_train_step import measure
+    from nanowakeword_tpu_torch.train import pretrain_encoder as PE
+    from nanowakeword_tpu_torch.utils.flax_msgpack import read_msgpack_file
+
+    seconds = {"phase": time.perf_counter()}
+    workers = os.cpu_count() or 1       # as pretrain_encoder.main
+    launches = {"mel": 0, "mix": 0}
+
+    def count(since):
+        launches["mel"] += mel_cuda.launches - since[0]
+        launches["mix"] += mix_cuda.launches - since[1]
+
+    def now():
+        return mel_cuda.launches, mix_cuda.launches
+
+    # (a) the corpus
+    cfg = PE.PretrainConfig(**PRETRAIN_V4)
+    t0 = time.perf_counter()
+    corpus = PE.build_corpus(cfg, verbose=False, workers=workers)
+    seconds["corpus"] = time.perf_counter() - t0
+    n_clips = len(corpus["clips"]) + len(corpus["heldout_clips"])
+    check(corpus["clips"].shape == (cfg.vocab_size * cfg.variants_per_word,
+                                    cfg.clip_samples)
+          and len(corpus["heldout_clips"]) == cfg.vocab_size
+          * cfg.heldout_variants
+          and corpus["noise"].shape == (cfg.noise_clips, cfg.clip_samples)
+          and corpus["rirs"].shape == (cfg.rir_clips, 2400), "corpus shapes")
+    full = V4_CLIPS * 24000 * 2
+    threshold = PE.int8_threshold(cuda)
+    log(f"[pretrain] corpus: {cfg.vocab_size} words x "
+        f"({cfg.variants_per_word} + {cfg.heldout_variants}) union clips of "
+        f"1.5 s, 240 noise, 64 impulses: {seconds['corpus']:.3f} s of host "
+        f"synthesis in {workers} processes ({n_clips / seconds['corpus']:.1f}"
+        f" clips/s); the v4 corpus ({V4_CLIPS} clips) would take "
+        f"{full / 1e9:.2f} GB on the card as int16, the threshold from free "
+        f"memory is {threshold / 1e9:.2f} GB: stored as "
+        f"{'int16' if full <= threshold else 'int8'}")
+
+    # (b) 300 steps at full width
+    history = []
+    since = now()
+    t0 = time.perf_counter()
+    enc_vars, report = PE.pretrain_encoder(cfg, corpus=corpus, log_every=50,
+                                           verbose=False, device=cuda,
+                                           history=history)
+    seconds[f"{cfg.steps} steps + held-out eval"] = time.perf_counter() - t0
+    mel_train = mel_cuda.launches - since[0]
+    count(since)
+    check(mel_train >= cfg.steps,
+          f"{mel_train} mel launches in {cfg.steps} pretraining steps")
+    first, last = history[0], history[-1]
+    rates = [(b["step"] - a["step"]) / (b["seconds"] - a["seconds"])
+             for a, b in zip(history[1:], history[2:])]
+    log(f"[pretrain] {cfg.steps} steps: loss {first['loss']:.4f} at step 1 "
+        f"(CE ln {cfg.vocab_size} = {np.log(cfg.vocab_size):.4f} + 0.5 "
+        f"SupCon) -> {last['loss']:.4f} at step {last['step']}; train acc "
+        f"{report['final_train_acc']:.4f}, held-out variant acc "
+        f"{report['heldout_variant_acc']:.4f}; mel kernel launches "
+        f"{mel_train} (one per step, {mel_train - cfg.steps} in the held-out"
+        f" eval)")
+    log(f"[time] {card}: pretraining wide128 at batch 256, 24000 samples: "
+        f"steps/s between log points {[round(r, 2) for r in rates]} (host "
+        f"clock after a sync); {cfg.steps / last['seconds']:.2f} steps/s "
+        f"over the whole loop")
+    check(np.isfinite(last["loss"]) and last["loss"] < 0.8 * first["loss"],
+          f"pretraining loss {first['loss']} -> {last['loss']}")
+    check(report["heldout_variant_acc"] > 3.0 / cfg.vocab_size,
+          f"held-out accuracy {report['heldout_variant_acc']}")
+
+    run = PE.PretrainRun(cfg, corpus, device=cuda, verbose=False)
+
+    def loop(k):
+        for _ in range(k):
+            metrics = run.step()
+        return metrics.cpu()
+
+    since = now()
+    prof = measure(loop, 20, {})
+    count(since)
+    log(f"[time] {card}: one pretraining step (draw, augmentation, "
+        f"forward, backward, AdamW), torch.profiler over 20 steps after 10 "
+        f"of warm-up: host {prof['host_ms_per_step']:.3f} ms/step, "
+        + (f"{prof['launches_per_step']:.0f} launches/step, device busy "
+           f"{prof['device_busy_ms_per_step']:.3f} ms/step, busy share "
+           f"{100 * prof['device_busy_share_of_host_time']:.1f}%; top "
+           + ", ".join(f"{k['name'][:40]} {k['ms_per_step']:.3f} ms"
+                       for k in prof["top_kernels"][:4])
+           if "launches_per_step" in prof else prof["device"]))
+
+    # the split of a step: the augmentation's host draws (and their copies
+    # to the card), the whole draw (sampling and augmentation), the update
+    from nanowakeword_tpu_torch.ops.augment import draw_augment
+
+    def host_ms(fn, n=20):
+        fn()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(n):
+            out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t1) * 1e3 / n, out
+
+    draws_ms, _ = host_ms(lambda: draw_augment(
+        run._fg_lens, cfg.clip_samples, run.aug_params, run.augment_rng,
+        cuda))
+    since = now()
+    batch_ms, (audio, y) = host_ms(run.draw_batch)
+    update_ms, _ = host_ms(lambda: run.train_on(audio, y))
+    count(since)
+    log(f"[time] {card}: the step's parts, host clock after a sync, 20 "
+        f"calls each: the augmentation's draws on the host and their copies"
+        f" to the card {draws_ms:.3f} ms, sampling and augmentation "
+        f"{batch_ms:.3f} ms, forward, backward and AdamW {update_ms:.3f} "
+        f"ms")
+
+    # (c) three AdamW steps, card vs a float64 step on the CPU, each from
+    # the card's weights and moments on one batch
+    t0 = time.perf_counter()
+    audio, y = audio.cpu(), y.cpu()
+    card_run = PE.PretrainRun(cfg, corpus, device=cuda, verbose=False)
+    tf32_err = []
+    for k in range(3):
+        start = {n: t.detach().cpu().clone()
+                 for n, t in card_run.module.state_dict().items()}
+        opt_state = card_run.optimizer.state_dict()
+        lr = card_run.optimizer.lr()
+        since = now()
+        m_card = card_run.train_on(audio.to(cuda), y.to(cuda)).cpu()
+        count(since)
+        tf32_err.append(judge_pretrain_step(k, cfg, start, opt_state, audio,
+                                            y, m_card.numpy(),
+                                            card_run.module, lr, cuda))
+    check(max(tf32_err) >= 2 * NORM64_RTOL,
+          f"the TF32 control's grad norm errors {tf32_err} are within "
+          f"twice the bar {NORM64_RTOL:g}")
+    seconds["3 steps card vs CPU"] = time.perf_counter() - t0
+    del run, card_run
+
+    # (d) resume at 16000 samples, batch 32: the mix kernel's route
+    t0 = time.perf_counter()
+    cfg_r = cfg._replace(vocab_size=16, variants_per_word=8,
+                         heldout_variants=1, clip_samples=16000,
+                         noise_clips=20, rir_clips=8, batch_size=32, steps=8)
+    corpus_r = PE.build_corpus(cfg_r, verbose=False)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    since = now()
+    save = PE._save_ckpt
+
+    class Killed(Exception):
+        pass
+
+    def save_then_die(checkpoint_dir, state):
+        save(checkpoint_dir, state)
+        if state["step"] == 4:
+            raise Killed
+
+    try:
+        straight, _ = PE.pretrain_encoder(cfg_r, corpus=corpus_r,
+                                          verbose=False, device=cuda)
+        ck = os.path.join(work, "pretrain_ck")
+        PE._save_ckpt = save_then_die
+        try:
+            PE.pretrain_encoder(cfg_r, corpus=corpus_r, verbose=False,
+                                checkpoint_dir=ck, checkpoint_every=4,
+                                device=cuda)
+        except Killed:
+            pass
+        PE._save_ckpt = save
+        resumed, _ = PE.pretrain_encoder(cfg_r, corpus=corpus_r,
+                                         verbose=False, checkpoint_dir=ck,
+                                         resume=True, device=cuda)
+    finally:
+        PE._save_ckpt = save
+        torch.backends.cudnn.deterministic = deterministic
+    mix_resume = mix_cuda.launches - since[1]
+    count(since)
+    same = all(np.array_equal(straight["params"][k][p],
+                              resumed["params"][k][p])
+               for k in straight["params"] for p in straight["params"][k])
+    log(f"[pretrain] resume at 16000 samples, batch 32: 8 straight steps vs "
+        f"4 steps, a kill after the step-4 checkpoint and a resumed run: "
+        f"encoder equal bit for bit: {same} (cudnn.deterministic on); mix "
+        f"kernel launches {mix_resume} in 16 steps")
+    check(same, "the resumed pretraining run differs from the straight run")
+    check(mix_resume >= 16, f"{mix_resume} mix launches in 16 steps")
+    seconds["resume"] = time.perf_counter() - t0
+
+    # (e) the transfer eval of the bundled v4 asset, on the card
+    t0 = time.perf_counter()
+    v4 = pretrained_encoder_variables()
+    v4_words = PE.sample_training_vocab(3072, seed=10)
+    since = now()
+    transfer = PE.evaluate_transfer(v4, v4_words, verbose=False,
+                                    device=cuda, workers=workers)
+    count(since)
+    log(f"[pretrain] transfer eval of the bundled v4 asset on the card (24 "
+        "words, 24 pairs, cross-channel): "
+        + json.dumps({k: round(v, 4) if isinstance(v, float) else v
+                      for k, v in transfer.items()})
+        + f"; the sidecar's build-time 24-pair eval: {V4_BUILD_NOTE}; the "
+        "random encoder is drawn by torch (not PRNGKey(10))")
+    check(transfer["unseen_word_centroid_acc"] >= 0.8,
+          f"v4 centroid accuracy {transfer['unseen_word_centroid_acc']}")
+    check(transfer["confusable_pair_acc"] >= 0.6,
+          f"v4 pair accuracy {transfer['confusable_pair_acc']}")
+    check(transfer["unseen_word_centroid_acc"]
+          >= transfer["random_encoder_centroid_acc"] + 0.2,
+          "v4 not better than a random encoder by 0.2")
+    words = PE.sample_vocab(24, seed=424242, exclude=v4_words)
+    clips = np.concatenate([PE.synthesize_word_variants(
+        w, 6, 24000, seed=9001 + 31 * i) for i, w in enumerate(words)])
+    since = now()
+    on_card = PE.embed_pooled(v4, clips, cuda)
+    count(since)
+    emb_err = float(np.abs(on_card - PE.embed_pooled(v4, clips, "cpu"))
+                    .max())
+    log(f"[pretrain] pooled embeddings of {len(clips)} clips, card vs CPU: "
+        f"max|diff| {emb_err:.3g} (bound {EMBED_TOL:g})")
+    check(emb_err <= EMBED_TOL, f"embeddings card vs CPU {emb_err}")
+    seconds["transfer eval"] = time.perf_counter() - t0
+
+    # (f) the asset written in (b), served by AudioFeatures on the card
+    path = PE.save_encoder_asset(enc_vars, os.path.join(work, "enc.msgpack"),
+                                 meta=report)
+    encoder = encoder_state_dict_from_flax(read_msgpack_file(path))
+    tone = np.round(seeded_audio(2, 32000, seed=3)).astype(np.int16)
+    since = now()
+    feats = AudioFeatures(encoder_state_dict=encoder,
+                          device=cuda).embed_clips(tone)
+    count(since)
+    feats_c = AudioFeatures(encoder_state_dict=encoder,
+                            device="cpu").embed_clips(tone)
+    asset_err = float(np.abs(feats - feats_c).max())
+    check(feats.shape == (2, 16, 96) and np.isfinite(feats).all()
+          and feats.std() > 0, f"features of the new asset {feats.shape}")
+    check(asset_err <= EMBED_TOL, f"new asset card vs CPU {asset_err}")
+    log(f"[pretrain] the asset written after {cfg.steps} steps "
+        f"({os.path.getsize(path)} bytes + sidecar) embeds a tone on the "
+        f"card: {feats.shape}, card vs CPU max|diff| {asset_err:.3g}")
+
+    # (g) a custom module's .onnx (torch.fx), served on the card
+    since = now()
+    custom_onnx(cuda, work)
+    count(since)
+
+    total = time.perf_counter() - seconds.pop("phase")
+    log(f"[launches] phase 20: mel kernel {launches['mel']}, mix kernel "
+        f"{launches['mix']}")
+    log(f"[time] phase 20: {total:.3f} s, of it "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in seconds.items())
+        + " (host clock)")
+    return launches
+
+
+def pretrain_update(cfg, state, opt_state, audio, y, device, dtype,
+                    tf32=False):
+    """One pretraining step taken by hand from `state` (a state_dict) and
+    `opt_state` (an Optimizer.state_dict()) on one batch, on `device` in
+    `dtype`: the forward and the backward inside no_tf32_convs, as
+    make_pretrain_step takes them (with cuDNN's TF32 convolutions instead
+    when `tf32`), then the port's clipped AdamW. -> ([loss, grad norm],
+    name -> updated weight, name -> gradient), the tensors as float64 on
+    the CPU."""
+    import numpy as np
+    import torch
+    from nanowakeword_tpu_torch.train import pretrain_encoder as PE
+    from nanowakeword_tpu_torch.utils.precision import no_tf32_convs
+
+    module = PE.EncoderPretrainModule(state["word_head.weight"].shape[0],
+                                      cfg.encoder_arch)
+    module.load_state_dict(state)
+    module = module.to(device=device, dtype=dtype)
+    params = dict(module.named_parameters())
+    optimizer = PE.make_optimizer(list(params.values()), cfg)
+    optimizer.load_state_dict(opt_state)
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic, allow_tf32=True)
+             if tf32 else no_tf32_convs())
+    with flags:
+        yd = y.to(device)
+        logits, z = module(audio.to(device), return_embedding=True)
+        loss = (torch.nn.functional.cross_entropy(logits, yd)
+                + cfg.contrastive_weight * PE.supcon_loss(
+                    z, yd, cfg.contrastive_temp))
+        grads = [g.detach().cpu().double() for g in torch.autograd.grad(
+            loss, list(params.values()))]
+        norm = torch.sqrt(sum((g * g).sum() for g in grads)).item()
+        optimizer.step([g.to(device=device, dtype=dtype) for g in grads])
+    return (np.array([loss.item(), norm]),
+            {n: p.detach().cpu().double() for n, p in params.items()},
+            dict(zip(params, grads)))
+
+
+def judge_pretrain_step(k, cfg, state, opt_state, audio, y, m_card,
+                        card_module, lr, cuda) -> float:
+    """One pretraining step (count k) on the card, float32 as the port
+    takes it, against the same step in float64 on the CPU, from the same
+    weights and moments (`state`, `opt_state`) on one batch: loss within
+    STEP_RTOL, grad norm within NORM64_RTOL; every weight within
+    WEIGHT_TOL except the rounding-level ones, held to 2 lr (judge_step's
+    rule). Adam moves an element by about lr * g / |g|, so where float32
+    rounding can decide the sign of g it decides the step. Which elements
+    those are is decided on the reference's side alone, never by the card:
+    those whose float64 clipped |g| is under 1e-6 (judge_step's line) or
+    under the largest error the CPU's float32 gradient of the same tensor
+    makes (at batch 256 x 24000 a convolution's float32 weight gradient
+    carries more noise than 1e-6). A control takes the same step by hand
+    on the card with cuDNN's TF32 convolutions. -> its grad norm's
+    relative error against float64, which the caller holds to twice
+    NORM64_RTOL or more (else the judge could not tell the port's
+    precision from TF32's)."""
+    import torch
+
+    m64, w64, g64 = pretrain_update(cfg, state, opt_state, audio, y, "cpu",
+                                    torch.float64)
+    _, _, g32 = pretrain_update(cfg, state, opt_state, audio, y, "cpu",
+                                torch.float32)
+    clip = min(1.0, 1.0 / m64[1])
+    small = {n: g.abs() * clip < max(1e-6, clip * (g32[n] - g).abs().max()
+                                     .item())
+             for n, g in g64.items()}
+    n_all = sum(s.numel() for s in small.values())
+    n_small = sum(int(s.sum()) for s in small.values())
+    n_line = sum(int((g.abs() * clip < 1e-6).sum()) for g in g64.values())
+
+    def against_float64(weights):
+        """-> (max|diff| of the others, its weight, max|diff| of the
+        rounding-level elements, elements past WEIGHT_TOL by the 1e-6 line
+        alone)"""
+        worst, worst_name, quiet, n_over = 0.0, "", 0.0, 0
+        for n, w in weights.items():
+            diff = (w - w64[n]).abs()
+            loud, rest = diff[~small[n]], diff[small[n]]
+            if loud.numel() and loud.max().item() > worst:
+                worst, worst_name = loud.max().item(), n
+            if rest.numel():
+                quiet = max(quiet, rest.max().item())
+            n_over += int(((diff > WEIGHT_TOL)
+                           & (g64[n].abs() * clip >= 1e-6)).sum())
+        return worst, worst_name, quiet, n_over
+
+    rel = abs(m_card[[0, 2]] - m64) / abs(m64)
+    worst, worst_name, quiet, n_over = against_float64(
+        {n: p.detach().cpu().double()
+         for n, p in card_module.named_parameters()})
+    m_tf32, w_tf32, _ = pretrain_update(cfg, state, opt_state, audio, y,
+                                        cuda, torch.float32, tf32=True)
+    tf32_rel = abs(m_tf32 - m64) / abs(m64)
+    tf32_worst, _, _, tf32_over = against_float64(w_tf32)
+    log(f"[step] card (float32) vs the CPU in float64, pretraining step "
+        f"{k + 1} of 3 (wide128, batch 256, 24000 samples, SupCon 0.5, lr "
+        f"{lr:.3g}) from the same state: loss {m64[0]:.6f}, rel {rel[0]:.3g},"
+        f" grad norm rel {rel[1]:.3g} (bound {NORM64_RTOL:g}); weights "
+        f"max|diff| {worst:.3g} ({worst_name}); {n_small} of {n_all} "
+        f"elements ({100 * n_small / n_all:.2f}%) rounding-level ({n_line} "
+        f"by the 1e-6 line, the rest under the CPU's float32 error): "
+        f"max|diff| {quiet:.3g} (bound 2 lr = {2 * lr:.3g}); by the 1e-6 "
+        f"line alone {n_over} elements would fail {WEIGHT_TOL:g}; control, "
+        f"the step with TF32 convolutions: loss rel {tf32_rel[0]:.3g}, grad "
+        f"norm rel {tf32_rel[1]:.3g}, weights max|diff| {tf32_worst:.3g}, "
+        f"{tf32_over} elements past {WEIGHT_TOL:g} by the 1e-6 line")
+    check(rel[0] <= STEP_RTOL and rel[1] <= NORM64_RTOL,
+          f"pretraining step {k + 1}: loss or grad norm card vs CPU")
+    check(worst <= WEIGHT_TOL,
+          f"pretraining step {k + 1}: weights card vs CPU {worst}")
+    check(quiet <= 2 * lr,
+          f"pretraining step {k + 1}: rounding-level elements {quiet}")
+    return tf32_rel[1]
+
+
+# the custom module of tests/test_torch_zoo.py::test_custom_model_loading
+ZOO_CUSTOM = (
+    "import torch\n"
+    "class MyNet(torch.nn.Module):\n"
+    "    def __init__(self, input_shape, embedding_dim, width=4):\n"
+    "        super().__init__()\n"
+    "        n = input_shape[0] * input_shape[1]\n"
+    "        self.a = torch.nn.Linear(n, width)\n"
+    "        self.norm = torch.nn.BatchNorm1d(width)\n"
+    "        self.b = torch.nn.Linear(width, embedding_dim)\n"
+    "    def forward(self, x):\n"
+    "        return self.b(self.norm(self.a(x.flatten(1))))\n")
+
+
+def custom_onnx(cuda, work) -> None:
+    """A user's custom module exported to `.onnx` through torch.fx by the
+    `-T` exporter, served on the card by NanoInterpreter.load_model: graph
+    vs module on the card within ONNX_TOL, card vs CPU within SCORE_TOL."""
+    import numpy as np
+    import torch
+    from nanowakeword_tpu_torch import NanoInterpreter
+    from nanowakeword_tpu_torch.export.artifact import export_onnx_model
+    from nanowakeword_tpu_torch.export.frontend import seeded_audio
+    from nanowakeword_tpu_torch.export.onnx_proto import load_model
+    from nanowakeword_tpu_torch.models.model import Model
+
+    src = os.path.join(work, "my_arch.py")
+    with open(src, "w") as f:
+        f.write(ZOO_CUSTOM)
+    cfg = {"custom_model_config": {"module_path": src, "class_name": "MyNet",
+                                   "params": {"width": 6}}}
+    model = Model(config=cfg, model_name="custom", input_shape=(16, 96),
+                  model_type="custom", seed=SEED, device=cuda)
+    bn = model.module.backbone.norm
+    with torch.no_grad():               # running statistics of a trained BN
+        bn.running_mean.uniform_(-0.5, 0.5)
+        bn.running_var.uniform_(0.5, 2.0)
+    path = export_onnx_model(model, (16, 96), cfg, "custom", work)
+    check(path is not None, "the custom module did not export")
+    batch_dim = load_model(path).graph.inputs[0].shape[0]
+    feats = np.random.default_rng(SEED).normal(0, 1, (256, 16, 96)).astype(
+        np.float32)
+    interp = NanoInterpreter.load_model(path, device=cuda)
+    session = next(iter(interp.models.values()))
+    got = session.run_batch(feats)
+    with torch.no_grad():
+        want = torch.sigmoid(model.module.eval()(
+            torch.from_numpy(feats).to(cuda))).cpu().numpy()[:, 0]
+    err = float(np.abs(got - want).max())
+    clip = np.round(seeded_audio(1, 32000, seed=5)[0]).astype(np.int16)
+    traces = [np.array([r.score for r in NanoInterpreter.load_model(
+        path, device=device).predict_clip(clip)]) for device in (cuda, "cpu")]
+    served = float(np.abs(traces[0] - traces[1]).max())
+    log(f"[onnx] custom module (Linear, BatchNorm1d, Linear) exported "
+        f"through torch.fx, batch dim {batch_dim!r}: 256 windows on the "
+        f"card vs the module max|score| {err:.3g} (bound {ONNX_TOL:g}); "
+        f"served 25 chunks card vs CPU max|score| {served:.3g} (bound "
+        f"{SCORE_TOL:g})")
+    check(batch_dim == "batch_size", f"batch dim {batch_dim}")
+    check(err <= ONNX_TOL, f"custom .onnx vs module {err}")
+    check(len(traces[0]) == 25 and np.isfinite(traces[0]).all()
+          and served <= SCORE_TOL, f"custom .onnx served card vs CPU {served}")
 
 
 ONNX_TOL = 1e-5     # an .onnx graph against the port's module, both on the

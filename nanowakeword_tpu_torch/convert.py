@@ -6,7 +6,8 @@ arrays (`params`, and `batch_stats` where the model has BatchNorm), as the
 `flax_variables_from_state_dict` is the inverse for a classifier, as the
 `.nww` writer stores it, and `flax_encoder_variables_from_state_dict` for
 an encoder. `e2e_state_dict_from_flax` carries the end-to-end module's
-tree (encoder and classifier) across.
+tree (encoder and classifier) across, `pretrain_state_dict_from_flax` and
+its inverse the encoder-pretraining module's (encoder and word head).
 
 A classifier's tree is walked, not tabulated: every composite module of
 models/architectures.py lists its sub-modules in the order the reference
@@ -394,3 +395,22 @@ def e2e_state_dict_from_flax(variables, e2e_model) -> dict:
     sd.update(_prefixed("classifier", model_state_dict_from_flax(
         clf, e2e_model.classifier_model)))
     return sd
+
+
+def pretrain_state_dict_from_flax(variables) -> dict:
+    """The encoder-pretraining module's flax variables ({"params":
+    {"encoder", "word_head"}}) -> the state_dict of
+    train/pretrain_encoder.py's EncoderPretrainModule."""
+    params = variables["params"]
+    sd = _prefixed("encoder", encoder_state_dict_from_flax(
+        {"params": params["encoder"]}))
+    sd.update(_prefixed("word_head", _dense(params["word_head"])))
+    return sd
+
+
+def flax_pretrain_variables_from_state_dict(state_dict) -> dict:
+    """The inverse of `pretrain_state_dict_from_flax`."""
+    sd = dict(state_dict)
+    encoder = flax_encoder_variables_from_state_dict(_sub(sd, "encoder"))
+    return {"params": {"encoder": encoder["params"],
+                       "word_head": _dense_flax(_sub(sd, "word_head"))}}

@@ -276,8 +276,8 @@ def export_onnx_model(model, input_shape, config, model_name: str,
                       weights_dtype: Optional[str] = None) -> Optional[str]:
     """The ONNX interchange export, `<output_dir>/<model_name>.onnx`
     (export/onnx_export.py) -> its path, or None with a logged message
-    where a model does not export (a `custom` module, or a family beyond
-    SUPPORTED_TYPES). int8 is the only quantized ONNX form: any other
+    where a model does not export (a family beyond SUPPORTED_TYPES, or a
+    `custom` module with an op that has no lowering). int8 is the only quantized ONNX form: any other
     `weights_dtype` (bfloat16 is `.nww`-only) writes float32."""
     del config
     from nanowakeword_tpu_torch.export.onnx_export import (SUPPORTED_TYPES,

@@ -22,8 +22,8 @@ the producer and the doc strings differ. All 13 families export:
     `hidden_in`/`cell_in` inputs and `score`/`hidden_out`/`cell_out`
     outputs, the stateful-model convention of the reference's interpreter.
 The shared WakeWordModule head is appended to every family. A user's
-`custom` module is not lowered: the JAX package traces its jaxpr, and a
-torch module has none, so it deploys through the `.nww` artifact.
+`custom` module is traced by torch.fx and lowered node by node
+(export/fx_onnx.py), as the JAX package lowers its jaxpr.
 
 Graph contract (with a DYNAMIC batch axis, as torch.onnx.export declares it
 in the reference):
@@ -45,7 +45,7 @@ from typing import List, Optional
 import numpy as np
 
 from nanowakeword_tpu_torch.export import onnx_proto as P
-from nanowakeword_tpu_torch.utils.logger import print_error, print_info
+from nanowakeword_tpu_torch.utils.logger import print_info
 
 SUPPORTED_TYPES = ("dnn", "cnn", "tcn", "quartznet", "bcresnet",
                    "lstm", "gru", "rnn", "crnn",
@@ -766,16 +766,17 @@ def _ebranchformer_backbone(g: _GraphBuilder, x: str, params: dict,
 
 
 def build_onnx(model, input_shape=None, weights_dtype=None) -> bytes:
-    """A Model (models/model.py) -> serialized ONNX ModelProto bytes, or
-    None (with a logged message) for a `custom` module."""
+    """A Model (models/model.py) -> serialized ONNX ModelProto bytes."""
     model_type = model.model_type
     if model_type in ("custom", "custom_model"):
-        # the JAX package lowers a user module's jaxpr; a torch module has
-        # none, and its lowering through torch.fx is still to be ported
-        # (ROADMAP.md)
-        print_error(f"ONNX export of '{model_type}' modules is not ported to "
-                    "PyTorch; they deploy via the .nww artifact.")
-        return None
+        # a user's module: traced by torch.fx and lowered node by node
+        # (the JAX package lowers its jaxpr); ExportUnsupported names an op
+        # with no lowering
+        from nanowakeword_tpu_torch.export.fx_onnx import \
+            build_onnx_from_module
+        return build_onnx_from_module(
+            model.module, tuple(input_shape or model.input_shape),
+            int(model.n_classes), name=model.model_name)
     if model_type not in SUPPORTED_TYPES:
         raise ValueError(
             f"ONNX export supports {SUPPORTED_TYPES}; '{model_type}' models "
@@ -855,8 +856,8 @@ def _to_np(tree):
 
 def export_onnx(model, path: str, input_shape=None,
                 weights_dtype=None) -> str:
-    """Write `build_onnx`'s graph to `path` -> `path`, or None for a
-    `custom` module. weights_dtype="int8" emits weight-only-quantized
+    """Write `build_onnx`'s graph to `path` -> `path`.
+    weights_dtype="int8" emits weight-only-quantized
     graphs (symmetric per-channel int8 initializers + DequantizeLinear);
     None or "float32" emits plain float32."""
     if weights_dtype not in (None, "float32", "int8"):
@@ -864,8 +865,6 @@ def export_onnx(model, path: str, input_shape=None,
                          f"/'int8', got {weights_dtype!r}")
     data = build_onnx(model, input_shape=input_shape,
                       weights_dtype=weights_dtype)
-    if data is None:
-        return None
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:
         f.write(data)

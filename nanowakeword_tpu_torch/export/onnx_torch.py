@@ -64,6 +64,15 @@ def _maxpool(x, kernel, strides):
                         tuple(int(s) for s in strides))
 
 
+def _avgpool(x, kernel, strides):
+    """ONNX AveragePool without padding (VALID), over 1 or 2 spatial
+    dims."""
+    if x.ndim == 3:
+        return F.avg_pool1d(x, int(kernel[0]), int(strides[0]))
+    return F.avg_pool2d(x, tuple(int(k) for k in kernel),
+                        tuple(int(s) for s in strides))
+
+
 def _gru_dir(X, W, R, B, linear_before_reset, h0=None):
     """One direction of an ONNX GRU ((z,r,h) gate order), a loop over T."""
     H = R.shape[1]
@@ -247,6 +256,9 @@ _OPS = {
     "Conv": _conv_node,
     "MaxPool": lambda x, a: _maxpool(x[0], a["kernel_shape"],
                                      a.get("strides", a["kernel_shape"])),
+    "AveragePool": lambda x, a: _avgpool(x[0], a["kernel_shape"],
+                                         a.get("strides",
+                                               a["kernel_shape"])),
     "BatchNormalization": _batch_norm,
     "ReduceMean": _reduce(torch.mean),
     "ReduceMax": _reduce(torch.amax),

@@ -78,7 +78,7 @@ def profile(model_type: str, compute_dtype: str, steps: int, seed: int):
             dropout_seed=seed)
         return run(hardness, g, features, labels, pools)
 
-    return _measure(loop, steps, {
+    return measure(loop, steps, {
         "model_type": model_type, "compute_dtype": compute_dtype,
         "n_params": model.n_params(), "batch": 256, "steps": steps})
 
@@ -105,13 +105,13 @@ def profile_e2e(batch: int, steps: int, seed: int):
             metrics = step(audio, labels)
         return metrics.loss.item()
 
-    return _measure(loop, steps, {
+    return measure(loop, steps, {
         "model_type": "e2e: wide128 encoder (bf16) + crnn",
         "compute_dtype": "float32", "n_params": model.n_params(),
         "batch": batch, "steps": steps})
 
 
-def _measure(loop, steps: int, out: dict) -> dict:
+def measure(loop, steps: int, out: dict) -> dict:
     """Host ms per step of `loop(steps)` after a warm-up, then the same
     under the profiler: launches, device-busy ms and the top kernels."""
     loop(10)                                               # warm-up

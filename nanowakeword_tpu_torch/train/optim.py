@@ -3,7 +3,8 @@
 The counterpart of `nanowakeword_tpu/train/optim.py`: AdamW (decoupled
 weight decay), Adam with L2 added to the gradient, and SGD with momentum,
 behind a global-norm clip, with the onecycle / cyclic (triangular2) /
-cosine schedules, driven by the same config keys.
+cosine schedules, driven by the same config keys. Encoder pretraining
+passes its own schedule (`warmup_cosine_decay_schedule`).
 
 Each schedule is a function of the step count, written from optax's
 definitions (not torch's OneCycleLR, which interpolates differently). The
@@ -83,6 +84,23 @@ def cosine_decay_schedule(init_value: float, decay_steps: int,
     return schedule
 
 
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
+                                 warmup_steps: int,
+                                 decay_steps: int) -> Schedule:
+    """optax.warmup_cosine_decay_schedule with end value 0: linear from
+    init_value to peak_value over warmup_steps, then a cosine decay to 0
+    over the remaining decay_steps - warmup_steps."""
+    decay = cosine_decay_schedule(peak_value, decay_steps - warmup_steps)
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            frac = 1.0 - count / warmup_steps
+            return (init_value - peak_value) * frac + peak_value
+        return decay(count - warmup_steps)
+
+    return schedule
+
+
 def build_schedule(config, total_steps: int) -> Schedule:
     """lr_scheduler_type -> schedule function of the step count."""
     sched_type = str(config.get("lr_scheduler_type", "onecycle")).lower()
@@ -116,18 +134,19 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
 
 class Optimizer:
     """Clip, then AdamW / Adam+L2 / SGD-momentum, then the schedule, in
-    place on `params` (a list of tensors)."""
+    place on `params` (a list of tensors). `schedule` replaces the one the
+    config names."""
 
     def __init__(self, params: List[torch.Tensor], config, total_steps: int,
                  grad_clip: float = 1.0, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8):
+                 eps: float = 1e-8, schedule: Optional[Schedule] = None):
         self.params = list(params)
         self.kind = str(config.get("optimizer_type", "adamw")).lower()
         if self.kind not in ("adamw", "adam", "sgd"):
             self.kind = "adamw"
         self.weight_decay = float(config.get("weight_decay", 1e-2))
         self.momentum = float(config.get("momentum", 0.9))
-        self.schedule = build_schedule(config, total_steps)
+        self.schedule = schedule or build_schedule(config, total_steps)
         self.grad_clip = grad_clip
         self.b1, self.b2, self.eps = b1, b2, eps
         self.count = 0

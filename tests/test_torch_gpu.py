@@ -513,3 +513,100 @@ def test_cache_check_names_the_cache_on_the_card(cuda):
     check_cache_fits(1 << 20, cuda, "device-cached training set")
     with pytest.raises(MemoryError, match="device-cached training set"):
         check_cache_fits(free, cuda, "device-cached training set")
+
+
+# -- encoder pretraining ----------------------------------------------------------
+
+PRETRAIN = dict(vocab_size=4, confusable_fraction=0.0, variants_per_word=4,
+                heldout_variants=1, clip_samples=16000, noise_clips=6,
+                rir_clips=2, batch_size=8, steps=20, encoder_arch="wide128",
+                contrastive_weight=0.5)
+
+
+@pytest.fixture(scope="module")
+def pretrain_corpus():
+    from nanowakeword_tpu_torch.train import pretrain_encoder as PE
+    return PE.build_corpus(PE.PretrainConfig(**PRETRAIN), verbose=False)
+
+
+def test_pretrain_module_mel_through_the_kernel(rng, cuda):
+    """EncoderPretrainModule on the card takes its mel from the kernel (one
+    launch per forward), equal to the plain version on the card on int16
+    audio, and gives the CPU's logits."""
+    from nanowakeword_tpu_torch.train import pretrain_encoder as PE
+    audio = torch.from_numpy(_audio(rng, (6, 24000)))
+    module = PE.EncoderPretrainModule(7, "wide128")
+    PE.flax_init_(module, torch.Generator().manual_seed(0))
+    on_card = audio.to(cuda)
+    kernel = mel_cuda.mel_frontend_fused(on_card)
+    assert torch.equal(kernel, mel_cuda.mel_frontend_plain(on_card))
+    # the CPU's log10 may round the last bit otherwise
+    np.testing.assert_allclose(kernel.cpu().numpy(),
+                               mel_cuda.mel_frontend_plain(audio).numpy(),
+                               rtol=0, atol=1e-6)
+    before = mel_cuda.launches
+    with torch.no_grad():
+        on_cpu = module(audio).numpy()
+        on_card = module.to(cuda)(audio.to(cuda)).cpu().numpy()
+    assert mel_cuda.launches == before + 1
+    np.testing.assert_allclose(on_card, on_cpu, rtol=FEATURE_TOL,
+                               atol=FEATURE_TOL)
+
+
+def _float64_pretrain_steps(cfg, audio, y, n):
+    """PretrainRun's fresh module after n steps of make_pretrain_step in
+    float64 on the CPU -> (metrics [n, 3], module, name -> |clipped
+    gradient| at the start)."""
+    from nanowakeword_tpu_torch.train import pretrain_encoder as PE
+    module = PE.EncoderPretrainModule(cfg.vocab_size, cfg.encoder_arch)
+    PE.flax_init_(module, torch.Generator().manual_seed(cfg.seed))
+    module = module.double()
+    params = dict(module.named_parameters())
+    logits, z = module(audio, return_embedding=True)
+    loss = (torch.nn.functional.cross_entropy(logits, y)
+            + cfg.contrastive_weight * PE.supcon_loss(z, y,
+                                                      cfg.contrastive_temp))
+    grads = torch.autograd.grad(loss, list(params.values()))
+    clip = min(1.0, 1.0 / torch.sqrt(sum((g * g).sum()
+                                         for g in grads)).item())
+    step = PE.make_pretrain_step(
+        module, PE.make_optimizer(list(params.values()), cfg), cfg)
+    metrics = np.array([step(audio, y).numpy() for _ in range(n)])
+    return metrics, module, {k: g.abs() * clip
+                             for k, g in zip(params, grads)}
+
+
+def test_pretrain_steps_card_match_cpu(cuda, pretrain_corpus):
+    """Two AdamW steps of the pretraining module on the card (float32)
+    from the same weights on one augmented batch (the first has lr 0, so
+    both gradients are taken at the same weights), against the same steps
+    in float64 on the CPU: loss and grad norm within 1e-4; weights within
+    1e-5, except where the float64 clipped gradient is under 1e-6, where
+    float32 rounding can decide the sign of g and Adam's g / (|g| + eps)
+    moves the element by +-lr: those are held to 2 lr."""
+    from nanowakeword_tpu_torch.train import pretrain_encoder as PE
+    cfg = PE.PretrainConfig(**dict(PRETRAIN, steps=300))
+    audio, y = PE.PretrainRun(cfg, pretrain_corpus, device="cpu",
+                              verbose=False).draw_batch()
+    run = PE.PretrainRun(cfg, pretrain_corpus, device=cuda, verbose=False)
+    before = mel_cuda.launches
+    metrics = np.array([run.train_on(audio.to(cuda), y.to(cuda)).cpu()
+                        .numpy() for _ in range(2)])
+    assert mel_cuda.launches == before + 2
+    want, reference, g64 = _float64_pretrain_steps(cfg, audio, y, 2)
+    np.testing.assert_allclose(metrics[:, [0, 2]], want[:, [0, 2]],
+                               rtol=1e-4)
+    bar = 2 * run.optimizer.lr(1)
+    card = dict(run.module.named_parameters())
+    for name, p in reference.named_parameters():
+        diff = (card[name].detach().cpu().double() - p.detach()).abs()
+        small = g64[name] < 1e-6
+        assert (diff * ~small).max().item() <= 1e-5, name
+        assert (diff * small).max().item() <= bar, name
+
+
+def test_pretrain_int8_threshold_follows_the_card(cuda):
+    from nanowakeword_tpu_torch.train import pretrain_encoder as PE
+    free, _ = torch.cuda.mem_get_info(cuda)
+    assert abs(PE.int8_threshold(cuda) - PE.INT16_CLIP_SHARE * free) \
+        <= 0.05 * free

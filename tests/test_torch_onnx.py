@@ -250,6 +250,9 @@ def test_unknown_op_raises_naming_it():
 
 
 def test_custom_model_exports_nothing(tmp_path, capsys):
+    """A custom module with an op that has no ONNX lowering writes no
+    `.onnx`: the export is logged and skipped, naming the op (a custom
+    module that lowers is exported: tests/test_torch_fx_onnx.py)."""
     src = tmp_path / "my_arch.py"
     src.write_text(
         "import torch\n"
@@ -259,14 +262,14 @@ def test_custom_model_exports_nothing(tmp_path, capsys):
         "        self.a = torch.nn.Linear(input_shape[0] * input_shape[1],\n"
         "                                 embedding_dim)\n"
         "    def forward(self, x):\n"
-        "        return self.a(x.flatten(1))\n")
+        "        return self.a(torch.cumsum(x, 1).flatten(1))\n")
     cfg = {"custom_model_config": {"module_path": str(src),
                                    "class_name": "MyNet"}}
     model = Model(config=cfg, model_name="c", model_type="custom",
                   device="cpu")
     assert export_onnx_model(model, (16, 96), cfg, "c", str(tmp_path)) is None
     assert not (tmp_path / "c.onnx").exists()
-    assert "deploy via the .nww artifact" in " ".join(
+    assert "ONNX export skipped: op cumsum has no ONNX lowering" in " ".join(
         capsys.readouterr().out.split())
 
 

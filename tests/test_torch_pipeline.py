@@ -20,6 +20,7 @@ from nanowakeword_tpu.interpreter.nanointerpreter import \
     NanoInterpreter as JaxNanoInterpreter
 from nanowakeword_tpu_torch import NanoInterpreter
 from nanowakeword_tpu_torch.export.artifact import load_nww
+from nanowakeword_tpu_torch.export.frontend import seeded_audio
 from nanowakeword_tpu_torch.ops import mel_cuda, mix_cuda
 from nanowakeword_tpu_torch.trainer import run_pipeline
 from nanowakeword_tpu_torch.utils.audio_io import write_wav
@@ -58,6 +59,21 @@ def corpus(tmp_path_factory):
     return {k: str(v) for k, v in dirs.items()}
 
 
+@pytest.fixture(scope="module")
+def tone_corpus(corpus, tmp_path_factory):
+    """The corpus with tones (export/frontend.py's seeded_audio) for the
+    clips: the bundled encoder's output is constant on white noise, so only
+    tones reach its weights."""
+    root = tmp_path_factory.mktemp("tone_corpus")
+    tones = dict(corpus)
+    for kind, n, seed in (("pos", 24000, 1), ("neg", 36000, 2)):
+        tones[kind] = str(root / kind)
+        os.makedirs(tones[kind])
+        for i, row in enumerate(seeded_audio(4, n, seed=seed)):
+            write_wav(os.path.join(tones[kind], f"{kind[0]}{i}.wav"), row)
+    return tones
+
+
 def _config(corpus, out_dir, augment: bool):
     def job(src, name, rounds):
         recipe = {"input_audio_dirs": [corpus[src]],
@@ -93,9 +109,13 @@ def _feature_manifest(feature_dir):
             "negatives": {"n": os.path.join(feature_dir, "neg.npy")}}
 
 
-def test_raw_transform_matches_jax(corpus, tmp_path):
+@pytest.mark.parametrize("kind", ["noise", "tone"])
+def test_raw_transform_matches_jax(request, tmp_path, kind):
     """-t with augmentation off: the raw path shares the reference's numpy
-    RNG, so the features match the JAX transform_clips."""
+    RNG, so the features match the JAX transform_clips, on noise bursts
+    and on tones."""
+    corpus = request.getfixturevalue("corpus" if kind == "noise"
+                                     else "tone_corpus")
     cfg = _config(corpus, tmp_path / "port", augment=False)
     out = run_pipeline(cfg, transform_clips=True, device="cpu")
     ref_dir = tmp_path / "jax"
@@ -108,6 +128,8 @@ def test_raw_transform_matches_jax(corpus, tmp_path):
         ref = np.load(ref_dir / f"{name}.npy")
         assert ours.shape == ref.shape == (4, 16, 96)
         np.testing.assert_allclose(ours, ref, rtol=0, atol=FEATURE_TOL)
+        if kind == "tone":   # the features move with the audio
+            assert ours.std(axis=1).max() > 0.1
 
 
 def test_transform_train_export_serve(corpus, tmp_path):
@@ -173,6 +195,8 @@ def test_training_modules_load_no_jax():
             "import nanowakeword_tpu_torch.export.artifact\n"
             "import nanowakeword_tpu_torch.export.custom_export\n"
             "import nanowakeword_tpu_torch.train.e2e\n"
+            "import nanowakeword_tpu_torch.train.pretrain_encoder\n"
+            "import nanowakeword_tpu_torch.export.fx_onnx\n"
             "import nanowakeword_tpu_torch.data.generator.generate_clips\n"
             "import nanowakeword_tpu_torch.interpreter.models\n"
             "import nanowakeword_tpu_torch.utils.dynamic_table\n"

@@ -21,6 +21,7 @@ from nanowakeword_tpu.runtime import Chunker as JaxChunker
 from nanowakeword_tpu_torch import AudioFeatures, NanoInterpreter
 from nanowakeword_tpu_torch.data.features import (CHUNK, EMB_OFFSET,
                                                   batch_embedding_frames)
+from nanowakeword_tpu_torch.export.frontend import seeded_audio
 from nanowakeword_tpu_torch.models.embedding import EMB_WINDOW
 from nanowakeword_tpu_torch.ops import mel_cuda
 from nanowakeword_tpu_torch.ops.mel import n_mel_frames
@@ -42,26 +43,42 @@ def port_features():
     return AudioFeatures(device="cpu")
 
 
-def test_embed_clips_matches_jax(port_features):
+def _clips(kind, seed, batch, n):
+    """int16 test audio: white noise, or a tone (export/frontend.py's
+    seeded_audio). The bundled encoder's output is constant on white noise,
+    so only the tone reaches its weights."""
+    if kind == "noise":
+        return np.random.default_rng(seed).integers(
+            -20000, 20000, (batch, n)).astype(np.int16)
+    return np.round(seeded_audio(batch, n, seed=seed)).astype(np.int16)
+
+
+@pytest.mark.parametrize("kind", ["noise", "tone"])
+def test_embed_clips_matches_jax(port_features, kind):
     """[2, 32000] int16 -> [2, 16, 96]. Bound 5e-3: the two mel routes
     round differently ordered f32 sums (each within 2e-3 of the other),
     and the encoder carries that through four convs."""
-    x = np.random.default_rng(1).integers(-20000, 20000,
-                                          (2, 32000)).astype(np.int16)
+    x = _clips(kind, 1, 2, 32000)
     ref = JaxAudioFeatures().embed_clips(x)
     out = port_features.embed_clips(x)
     assert out.shape == ref.shape == (2, 16, 96)
     assert out.shape[1] == batch_embedding_frames(n_mel_frames(32000))
     assert out.dtype == np.float32
     np.testing.assert_allclose(out, ref, atol=5e-3)
+    if kind == "tone":       # the features move with the audio
+        assert out.std(axis=1).max() > 0.1
 
 
-def test_streaming_equals_batch_after_warmup(port_features):
+@pytest.mark.parametrize("kind", ["noise", "tone"])
+def test_streaming_equals_batch_after_warmup(port_features, kind):
     """As tests/test_features.py: every streamed embedding whose 76-frame
     mel window lies inside real audio equals the batch path's frame."""
     af = port_features
     af.reset()
-    x = _speech_like(7, 16000 * 4).astype(np.float32)
+    if kind == "noise":
+        x = _speech_like(7, 16000 * 4).astype(np.float32)
+    else:
+        x = _clips(kind, 7, 1, 16000 * 4)[0].astype(np.float32)
     batch = af.embed_clips(x[None])[0]                   # [41, 96]
     stream = []
     for c in range(len(x) // CHUNK):
@@ -72,6 +89,8 @@ def test_streaming_equals_batch_after_warmup(port_features):
         i = (8 * (c + 1) - EMB_WINDOW) // 8
         np.testing.assert_allclose(stream[c], batch[i], rtol=1e-4,
                                    atol=2e-4, err_msg=f"chunk {c}")
+    if kind == "tone":
+        assert batch.std(axis=0).max() > 0.1
     assert EMB_OFFSET == 4
     af.reset()
     assert af.feature_buffer.shape[0] == 0 and af.accumulated_samples == 0
@@ -139,7 +158,8 @@ def test_chunker_matches_jax():
 def test_import_loads_no_jax():
     code = ("import sys, nanowakeword_tpu_torch\n"
             "from nanowakeword_tpu_torch import convert\n"
-            "from nanowakeword_tpu_torch.export import artifact\n"
+            "from nanowakeword_tpu_torch.export import artifact, fx_onnx\n"
+            "from nanowakeword_tpu_torch.train import pretrain_encoder\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'msgpack', 'ml_dtypes', "
             "'nanowakeword_tpu')]\n"
