@@ -163,15 +163,17 @@ def main() -> int:
     log(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
 
-    # -- 2. the build: one nvcc per kernel, all started together ----------------
+    # -- 2. the build: one nvcc per kernel and g++ for the host runtime, all
+    # started together ---------------------------------------------------------
     t0 = time.perf_counter()
-    names = ("mel_frontend", "mix_gain")
+    names = ("mel_frontend", "mix_gain", "nww_runtime")
     with ThreadPoolExecutor(len(names)) as pool:
         libs = list(pool.map(_build.build, names))
     for name, lib in zip(names, libs):
         log(f"[build] {os.path.relpath(lib, ROOT)} from "
-            f"{os.path.relpath(_build.CSRC / (name + '.cu'), ROOT)}")
-    log(f"[build] {len(names)} kernels in {time.perf_counter() - t0:.2f} s")
+            f"{os.path.relpath(_build._source(name), ROOT)}")
+    log(f"[build] 2 kernels and the native runtime in "
+        f"{time.perf_counter() - t0:.2f} s")
 
     # -- 3. the kernel against its plain version, on the card ------------------------
     def audio(shape, dtype):
@@ -372,6 +374,9 @@ def main() -> int:
     # -- 20. encoder pretraining, and a custom module's .onnx --------------------
     with tempfile.TemporaryDirectory(prefix="nww_smoke_") as work:
         pretrain = pretrain_phase(cuda, card, work)
+    # -- 21. the native runtime; data and tensor parallelism ----------------
+    runtime_phase(rng, e2e.pop("wavs"))
+    parallel_launches = parallel_phase(rng, cuda, card)
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "nanowakeword_tpu"))
@@ -383,7 +388,7 @@ def main() -> int:
         "source": "nanowakeword_tpu_torch/csrc/mel_frontend.cu",
         "replaces": "nanowakeword_tpu/ops/mel_pallas.py:269",
         "launches": (main_launches + serving_launches + e2e["mel"]
-                     + onnx_launches + pretrain["mel"]),
+                     + onnx_launches + pretrain["mel"] + parallel_launches),
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -891,13 +896,14 @@ def training_phases(rng, cuda, card, work) -> dict:
     """Phases 8-10: -t, -T and serving the trained artifact, on the card."""
     import numpy as np
     import torch
-    from nanowakeword_tpu_torch import NanoInterpreter
+    from nanowakeword_tpu_torch import NanoInterpreter, runtime
     from nanowakeword_tpu_torch.models.model import Model
     from nanowakeword_tpu_torch.ops import mel_cuda, mix_cuda
     from nanowakeword_tpu_torch.train.cached import (build_cached_data,
                                                      make_cached_train_loop)
     from nanowakeword_tpu_torch.train.optim import Optimizer
     from nanowakeword_tpu_torch.trainer import run_pipeline
+    from nanowakeword_tpu_torch.utils import audio_io
 
     dirs = _write_corpus(rng, work)
 
@@ -935,14 +941,22 @@ def training_phases(rng, cuda, card, work) -> dict:
     log(f"[transform] features pos {feats['pos'].shape}, neg "
         f"{feats['neg'].shape}, finite; mean {feats['pos'].mean():.4f} / "
         f"{feats['neg'].mean():.4f}")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run_pipeline(config, transform_clips=True, overwrite=True, device=cuda)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    log(f"[time] {card}: transform stage (decode + augment + features, batch "
-        f"512, 1024 clips of 2 s): {1024 / seconds:.1f} clips/s ({seconds:.3f}"
-        f" s, host clock, second run)")
+    # the second run decodes natively, the third with the numpy twin
+    for decoder, label in ((None, "native"), (runtime.plain_decode_wav_bytes,
+                                              "numpy twin")):
+        audio_io.WAV_DECODER = decoder
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_pipeline(config, transform_clips=True, overwrite=True,
+                         device=cuda)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            audio_io.WAV_DECODER = None
+        log(f"[time] {card}: transform stage (decode + augment + features, "
+            f"batch 512, 1024 clips of 2 s), WAVs decoded by the {label}: "
+            f"{1024 / seconds:.1f} clips/s ({seconds:.3f} s, host clock)")
 
     # -- 9. device-cached training of the shipped CRNN at full width ------------
     paths = {"pos": os.path.join(out["feature_dir"], "pos.npy"),
@@ -1287,13 +1301,15 @@ def e2e_phase(rng, cuda, card, work) -> dict:
     then `-T` with `end_to_end.enabled` from those WAVs: the bundled wide128
     v4 encoder (warm-started, trained in bf16) and the shipped CRNN at full
     width, 100 steps at the reference's e2e composition (8 targets + 16
-    negatives) and 20 steps at 256 clips a batch; the mel kernel runs in
-    every step's forward. Then one step card vs CPU with a float32 encoder
+    negatives) and 20 steps at 256 clips a batch, then the 20 again with
+    the WAVs decoded by the native runtime's numpy twin; the mel kernel
+    runs in every step's forward. Then one step card vs CPU with a float32
+    encoder
     (judge_step), and the exported `.nww`, which bundles the trained
     encoder, served on the card against the CPU. -> the kernels' launches."""
     import numpy as np
     import torch
-    from nanowakeword_tpu_torch import NanoInterpreter
+    from nanowakeword_tpu_torch import NanoInterpreter, runtime
     from nanowakeword_tpu_torch.convert import encoder_state_dict_from_flax
     from nanowakeword_tpu_torch.data.features import \
         pretrained_encoder_variables
@@ -1304,7 +1320,9 @@ def e2e_phase(rng, cuda, card, work) -> dict:
     from nanowakeword_tpu_torch.train.e2e import AudioClipDataset, E2EModel
     from nanowakeword_tpu_torch.train.trainer import Trainer
     from nanowakeword_tpu_torch.trainer import run_pipeline
+    from nanowakeword_tpu_torch.utils import audio_io
     from nanowakeword_tpu_torch.utils.audio_io import load_audio
+    import wave
 
     seconds = {"phase": time.perf_counter()}
     corpus = _write_corpus(rng, os.path.join(work, "corpus"))
@@ -1403,24 +1421,36 @@ def e2e_phase(rng, cuda, card, work) -> dict:
     runs = {}
     mel_cuda.reset_launches()
     Trainer.train_model = recording_train_model
+    small, large = {"targets": 8, "negatives": 16}, {"targets": 64,
+                                                       "negatives": 192}
     try:
-        for steps, composition in ((100, {"targets": 8, "negatives": 16}),
-                                   (20, {"targets": 64, "negatives": 192})):
+        # the WAVs decode natively; the last run decodes them with the
+        # numpy twin, for the split of the loop's wait
+        for name, steps, composition, decoder in (
+                ("100", 100, small, None), ("20", 20, large, None),
+                ("20_plain", 20, large, runtime.plain_decode_wav_bytes)):
             before = mel_cuda.launches
             t0 = time.perf_counter()
-            run = run_pipeline(dict(config, model_name=f"smoke_e2e_{steps}",
-                                    steps=steps, early_stopping_patience=0,
-                                    batch_composition=composition,
-                                    end_to_end=e2e_cfg),
-                               train_model=True, device=cuda)
-            seconds[f"-T e2e, {steps} steps"] = time.perf_counter() - t0
+            audio_io.WAV_DECODER = decoder
+            try:
+                run = run_pipeline(dict(config, model_name=f"smoke_e2e_{name}",
+                                        steps=steps, early_stopping_patience=0,
+                                        batch_composition=composition,
+                                        end_to_end=e2e_cfg),
+                                   train_model=True, device=cuda)
+            finally:
+                audio_io.WAV_DECODER = None
+            seconds[f"-T e2e, {name} steps"] = time.perf_counter() - t0
             run["launches"] = mel_cuda.launches - before
             run["loop"] = trainers[-1].loop_seconds
             run["stamps"] = trainers[-1].stamps
-            runs[steps] = run
+            run["steps"], run["decoder"] = steps, (
+                "the numpy twin" if decoder else "the native decoder")
+            runs[name] = run
     finally:
         Trainer.train_model = train_model
-    for steps, run in runs.items():
+    for run in runs.values():
+        steps = run["steps"]
         loss = run["model"].history["loss"]
         batch = 24 if steps == 100 else 256
         check(len(loss) == steps and np.isfinite(loss).all(),
@@ -1439,12 +1469,12 @@ def e2e_phase(rng, cuda, card, work) -> dict:
             f"({loop:.3f} s for {steps} steps, first steps included, host "
             f"clock), {steady:.2f} steps/s between the launches of the last "
             f"{len(stamps)} steps; the loop waited on the prefetch thread "
-            f"(WAV decoding) for {waited:.3f} s, {100 * waited / loop:.1f}% "
-            f"of it")
+            f"(WAV decoding by {run['decoder']}) for {waited:.3f} s, "
+            f"{100 * waited / loop:.1f}% of it")
 
     # the artifact bundles the trained encoder
-    e2e = runs[100]["model"]
-    header, _, encoder = load_nww(runs[100]["artifact"], device="cpu")
+    e2e = runs["100"]["model"]
+    header, _, encoder = load_nww(runs["100"]["artifact"], device="cpu")
     trained = e2e.module.encoder.state_dict()
     asset = encoder_state_dict_from_flax(pretrained_encoder_variables())
     check(header["has_encoder"] and all(torch.equal(encoder[k],
@@ -1454,13 +1484,13 @@ def e2e_phase(rng, cuda, card, work) -> dict:
     moved = max((trained[k].cpu() - torch.as_tensor(asset[k])).abs().max()
                 .item() for k in trained)
     check(moved > 0, "e2e training did not move the encoder")
-    log(f"[e2e] {os.path.basename(runs[100]['artifact'])} bundles the "
+    log(f"[e2e] {os.path.basename(runs['100']['artifact'])} bundles the "
         f"trained encoder (max|trained - asset| {moved:.3g})")
     from nanowakeword_tpu_torch.export import onnx_proto
-    for steps, run in runs.items():
+    for name, run in runs.items():
         check_onnx_exports(os.path.dirname(run["artifact"]),
-                           f"smoke_e2e_{steps}", FRONTEND_GRAPHS)
-    graph = onnx_proto.load_model(runs[100]["artifact"][:-len(".nww")]
+                           f"smoke_e2e_{name}", FRONTEND_GRAPHS)
+    graph = onnx_proto.load_model(runs["100"]["artifact"][:-len(".nww")]
                                   + "_embedding.onnx").graph
     check(np.array_equal(graph.initializers[graph.nodes[1].inputs[1]],
                          trained["conv0.weight"].cpu().numpy()),
@@ -1468,9 +1498,51 @@ def e2e_phase(rng, cuda, card, work) -> dict:
     log("[onnx] the e2e embedding graph holds the trained encoder's first "
         "convolution")
 
-    # one step, card vs CPU, from the same weights and audio
+    # the prefetch thread's batch at 256 clips, produced alone (no step
+    # holding the GIL), with each decoder
     dataset = AudioClipDataset(manifest, clip_samples=32000)
     pools = dataset.index_pools
+    idx = np.concatenate([pools["targets_0"][:64], pools["negatives_0"][:96],
+                          pools["negatives_1"][:96]])
+    paths = [dataset.entries[int(i)][0] for i in idx]
+    t0 = time.perf_counter()
+    for path in paths:
+        with open(path, "rb") as f:
+            f.read()
+    read_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for path in paths:
+        load_audio(path)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    # read_wav's width probe alone: one wave.open of each file
+    t0 = time.perf_counter()
+    for path in paths:
+        with wave.open(path, "rb") as probe:
+            probe.getsampwidth()
+    probe_ms = (time.perf_counter() - t0) * 1e3
+    log(f"[time] {card}: of one e2e batch of 256 WAVs, the file reads alone "
+        f"{read_ms:.3f} ms, load_audio (probe, read, native decode) "
+        f"{load_ms:.3f} ms, read_wav's width probe alone (wave.open and "
+        f"getsampwidth, after the reads) {probe_ms:.3f} ms (host clock)")
+    gather_ms = {}
+    for label, decoder in (("native", None), ("numpy twin",
+                                              runtime.plain_decode_wav_bytes)):
+        audio_io.WAV_DECODER = decoder
+        try:
+            runs_ms = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                dataset.gather(idx)
+                runs_ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            audio_io.WAV_DECODER = None
+        gather_ms[label] = runs_ms
+    log(f"[time] {card}: one e2e batch of 256 clips produced alone "
+        f"(AudioClipDataset.gather: read, decode, crop; host clock, 3 runs): "
+        + ", ".join(f"{k} {[round(t, 3) for t in v]} ms"
+                    for k, v in gather_ms.items()))
+
+    # one step, card vs CPU, from the same weights and audio
     idx = np.concatenate([pools["targets_0"][:8], pools["negatives_0"][:8],
                           pools["negatives_1"][:8]])
     audio, labels, _ = dataset.gather(idx)
@@ -1503,7 +1575,7 @@ def e2e_phase(rng, cuda, card, work) -> dict:
     traces = []
     t0 = time.perf_counter()
     for device in (cuda, "cpu"):
-        interp = NanoInterpreter.load_model(runs[100]["artifact"],
+        interp = NanoInterpreter.load_model(runs["100"]["artifact"],
                                             device=device)
         traces.append(np.array([r.score for r in interp.predict_clip(clip)]))
     seconds["served, card and CPU"] = time.perf_counter() - t0
@@ -1517,6 +1589,8 @@ def e2e_phase(rng, cuda, card, work) -> dict:
     launches["mel"] += mel_cuda.launches - compare_launches
     log(f"[launches] phase 18: mel kernel {launches['mel']} (-t, e2e "
         f"training and serving), mix kernel {launches['mix']}")
+    launches["wavs"] = [open(os.path.join(d, f), "rb").read()
+                        for d in dirs.values() for f in sorted(os.listdir(d))]
     total = time.perf_counter() - seconds.pop("phase")
     log(f"[time] phase 18: {total:.3f} s, of it "
         + ", ".join(f"{k} {v:.3f} s" for k, v in seconds.items())
@@ -2393,6 +2467,327 @@ def judge_step(what, config, fresh, logits, x, y, cuda) -> None:
           "loss or grad norm card vs CPU")
     check(worst <= WEIGHT_TOL, f"weights card vs CPU {worst}")
     check(worst_noise <= 2 * lr, f"rounding-level elements {worst_noise}")
+
+
+
+# Phase 21: the native runtime, and data and tensor parallelism. On a
+# machine with one card the mesh is two replicas on it.
+DP_LOSS_RTOL = 1e-5     # a DP step vs the one-device step
+DP_PARAM_RTOL, DP_PARAM_ATOL = 1e-4, 1e-6   # (tests/test_train_step.py)
+LOOP_RTOL = 1e-4        # 20 cached steps: losses and hardness (same file)
+LOOP_PARAM_RTOL = 1e-3  # ... and the weights
+
+
+def runtime_phase(rng, wavs) -> None:
+    """Phase 21, first half: the native runtime, built from csrc/ with g++,
+    against its numpy twins: phase 18's WAVs decoded bit for bit (ms per
+    clip for each), and a ring and a chunker over a 30 s stream."""
+    import numpy as np
+    from nanowakeword_tpu_torch import runtime
+
+    lib = runtime.load_native()
+    path = os.path.relpath(runtime.library_path(), ROOT)
+    check(lib._name == runtime.library_path()
+          and path.startswith(os.path.join("build", "nww_torch_kernels")),
+          f"the native runtime is not the build under build/: {lib._name}")
+    log(f"[runtime] native runtime {path} from "
+        f"nanowakeword_tpu_torch/csrc/{runtime.LIBRARY}.cc (g++)")
+    ms = {}
+    outs = {}
+    for name, fn in (("native", runtime.decode_wav_bytes),
+                     ("numpy twin", runtime.plain_decode_wav_bytes)):
+        t0 = time.perf_counter()
+        outs[name] = [fn(buf) for buf in wavs]
+        ms[name] = (time.perf_counter() - t0) * 1e3 / len(wavs)
+    for (a, ra), (b, rb) in zip(outs["native"], outs["numpy twin"]):
+        check(ra == rb and a.dtype == b.dtype and np.array_equal(a, b),
+              "native decode differs from the numpy twin")
+    n = sum(len(a) for a, _ in outs["native"])
+    log(f"[runtime] phase 18's {len(wavs)} WAVs ({n} samples): native == "
+        f"numpy twin bit for bit; ms per clip: native {ms['native']:.4f}, "
+        f"numpy twin {ms['numpy twin']:.4f} (host clock)")
+
+    stream = np.clip(rng.normal(0, 3000, 16000 * 30), -32768,
+                     32767).astype(np.int16)
+    rings = [runtime.AudioRing(16000 * 10), runtime.PlainAudioRing(16000 * 10)]
+    chunkers = [runtime.Chunker(1280), runtime.PlainChunker(1280)]
+    pos = popped = 0
+    while pos < len(stream):
+        n = int(rng.integers(1, 4000))
+        part = stream[pos:pos + n]
+        pos += n
+        check(len({r.push(part) for r in rings}) == 1, "ring push")
+        want = int(rng.integers(0, 3000))
+        got = [r.pop(want) for r in rings]
+        check(np.array_equal(got[0], got[1]), "ring pop differs")
+        popped += len(got[0])
+        frac = part.astype(np.float32) + 0.25
+        chunks = [c.feed(frac) for c in chunkers]
+        check(np.array_equal(chunks[0], chunks[1])
+              and chunkers[0].pending == chunkers[1].pending,
+              "chunker differs")
+    check(rings[0].size == rings[1].size and rings[0].capacity == 262144,
+          "ring size or capacity")
+    log(f"[runtime] 30 s streamed in random pieces: ring (capacity "
+        f"{rings[0].capacity}) and chunker (fractional float32) == their "
+        f"numpy twins; {popped} samples popped, {rings[0].size} left")
+
+
+def noise_elements(module, x, y) -> dict:
+    """name -> elements whose clipped float64 gradient is < 1e-6 (judge_step's
+    rule: a conv bias before a BatchNorm; Adam moves them by +-lr on
+    rounding noise), with dropout off, on a float64 copy on the CPU."""
+    import copy
+    import torch
+    from nanowakeword_tpu_torch.train.optim import global_norm
+    from nanowakeword_tpu_torch.train.step import make_loss
+    module = copy.deepcopy(module).cpu().double().train()
+    for m in module.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    params = dict(module.named_parameters())
+    out = module(x.double().cpu()).reshape(-1)
+    grads = torch.autograd.grad(make_loss()(out, y.double().cpu()),
+                                list(params.values()))
+    clip = min(1.0, 1.0 / global_norm(list(grads)).item())
+    return {k: g.abs() * clip < 1e-6 for k, g in zip(params, grads)}
+
+
+def compare_weights(what, ours, ref, noise, rtol, atol, lr_bound) -> None:
+    """State dicts: noise elements within lr_bound, the rest within
+    rtol/atol."""
+    import torch
+    worst, worst_name, worst_noise = 0.0, "", 0.0
+    for k, v in ref.items():
+        if not torch.is_floating_point(v):
+            continue
+        diff = (ours[k].cpu() - v.cpu()).abs()
+        mask = noise.get(k, torch.zeros_like(diff, dtype=torch.bool)).cpu()
+        excess = diff - (atol + rtol * v.cpu().abs())
+        if (~mask).any() and excess[~mask].max().item() > 0:
+            raise RuntimeError(f"check failed: {what}: {k} off by "
+                               f"{diff[~mask].max().item():.3g}")
+        if (~mask).any() and diff[~mask].max().item() > worst:
+            worst, worst_name = diff[~mask].max().item(), k
+        if mask.any():
+            worst_noise = max(worst_noise, diff[mask].max().item())
+    check(worst_noise <= lr_bound, f"{what}: rounding-level elements "
+          f"{worst_noise} > {lr_bound}")
+    log(f"[dp] {what}: weights and BatchNorm stats max|diff| {worst:.3g} "
+        f"({worst_name}; bound {rtol:g} relative + {atol:g}); "
+        f"{sum(int(m.sum()) for m in noise.values())} rounding-level "
+        f"elements max|diff| {worst_noise:.3g} (bound {lr_bound:.3g})")
+
+
+def parallel_phase(rng, cuda, card) -> int:
+    """Phase 21, second half: data and tensor parallelism over every visible
+    card, or two replicas on cuda:0 where there is one: a DP step of the
+    shipped CRNN (BatchNorm, dropout 0.3) at batch 256 against the
+    one-device step; 20 steps of the device-cached loop against one device;
+    a conformer at model_parallel=2 against one device; sharded embed_clips
+    on int16 [1024, 32000] against unsharded; the server with
+    data_parallel=-1 against the single-device server. -> mel launches."""
+    import asyncio
+    import copy
+    import numpy as np
+    import torch
+    from nanowakeword_tpu_torch import AudioFeatures
+    from nanowakeword_tpu_torch.export.artifact import load_nww
+    from nanowakeword_tpu_torch.export.frontend import seeded_audio
+    from nanowakeword_tpu_torch.interpreter import remote_verifier as rv
+    from nanowakeword_tpu_torch.models.model import Model
+    from nanowakeword_tpu_torch.ops import mel_cuda
+    from nanowakeword_tpu_torch.parallel import dp
+    from nanowakeword_tpu_torch.parallel import mesh as M
+    from nanowakeword_tpu_torch.train.cached import (CachedData,
+                                                     make_cached_train_loop,
+                                                     put_cached_on_mesh)
+    from nanowakeword_tpu_torch.train.optim import Optimizer
+    from nanowakeword_tpu_torch.train.step import make_train_step
+
+    t_phase = time.perf_counter()
+    devices = M.visible_devices()
+    if len(devices) == 1:
+        devices = [devices[0]] * 2
+        log("[dp] one card visible: the mesh is two replicas on cuda:0")
+    mesh = M.make_mesh(devices=devices)
+    log(f"[dp] mesh {mesh}")
+    lr = float(SHIPPED_CRNN["learning_rate_max"]) / 25.0   # onecycle, early
+
+    def crnn(dropout):
+        return Model(config=dict(SHIPPED_CRNN), model_name="t",
+                     input_shape=(16, 96), model_type="crnn", layer_dim=64,
+                     n_blocks=2, dropout_prob=dropout, seed=SEED,
+                     device=cuda).train().module
+
+    def steps(module, mesh, x, y, n, config=SHIPPED_CRNN):
+        opt = Optimizer(list(module.parameters()), config, 20000)
+        if mesh is None:
+            step = make_train_step(module, opt, dropout_seed=SEED)
+        else:
+            opt = dp.shard_train_state(module, opt, mesh)
+            step = dp.make_dp_train_step(module, opt, mesh, dropout_seed=SEED)
+        losses, times = [], []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(step(x, y).loss.item())
+            times.append((time.perf_counter() - t0) * 1e3)
+        return losses, times, {k: v.clone() for k, v in
+                               module.state_dict().items()}
+
+    # one DP step of the shipped CRNN at batch 256, dropout 0.3
+    x = torch.from_numpy(rng.normal(0, 1, (256, 16, 96)).astype(
+        np.float32)).to(cuda)
+    y = torch.cat([torch.ones(96), torch.zeros(160)]).to(cuda)
+    base = crnn(0.3)
+    one = steps(copy.deepcopy(base), None, x, y, 1)
+    sharded = steps(copy.deepcopy(base), mesh, x, y, 1)
+    noise = noise_elements(base, x, y)
+    loss_err = abs(sharded[0][0] - one[0][0]) / abs(one[0][0])
+    log(f"[dp] one step of the shipped CRNN (dropout 0.3) at batch 256 over "
+        f"{mesh.shape[M.DATA_AXIS]} replicas vs one device: loss "
+        f"{sharded[0][0]:.6f} vs {one[0][0]:.6f}, rel {loss_err:.3g} "
+        f"(bound {DP_LOSS_RTOL:g})")
+    check(loss_err <= DP_LOSS_RTOL, f"DP step loss {loss_err}")
+    compare_weights("one DP step vs one device", sharded[2], one[2], noise,
+                    DP_PARAM_RTOL, DP_PARAM_ATOL, 2 * lr)
+    one = steps(copy.deepcopy(base), None, x, y, 6)
+    sharded = steps(copy.deepcopy(base), mesh, x, y, 6)
+    log(f"[time] {card}: training step of the shipped CRNN at batch 256 "
+        f"(host clock after synchronize, steps 2-6): one device "
+        f"{[round(t, 3) for t in one[1][1:]]} ms, "
+        f"{mesh.shape[M.DATA_AXIS]} replicas {[round(t, 3) for t in sharded[1][1:]]}"
+        f" ms")
+
+    # 20 steps of the device-cached loop
+    n_rows = 2048
+    feats = torch.from_numpy(rng.normal(0, 1, (n_rows, 16, 96)).astype(
+        np.float32)).to(cuda)
+    labels = torch.zeros(n_rows, device=cuda)
+    labels[:512] = 1.0
+    feats[:512] += 0.5
+
+    def cached(mesh):
+        module = copy.deepcopy(base)
+        opt = Optimizer(list(module.parameters()), SHIPPED_CRNN, 20000)
+        data = CachedData(features=feats, labels=labels,
+                          hardness=torch.full((n_rows,), 0.05, device=cuda),
+                          pools=(torch.arange(512, device=cuda),
+                                 torch.arange(512, n_rows, device=cuda)),
+                          quotas=(96, 160), replace=(False, False))
+        features = data.features
+        if mesh is not None:
+            opt = dp.shard_train_state(module, opt, mesh)
+            data = put_cached_on_mesh(data, mesh)
+            features = data.replicas
+        loop = make_cached_train_loop(module, opt, quotas=data.quotas,
+                                      replace=data.replace, k_steps=20,
+                                      dropout_seed=SEED, mesh=mesh)
+        gen = torch.Generator(device=cuda).manual_seed(SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = loop(data.hardness, gen, features, data.labels, data.pools)
+        m = m.cpu().numpy()
+        seconds = time.perf_counter() - t0
+        return m, data.hardness.cpu().numpy(), gen.get_state(), \
+            module.state_dict(), seconds
+
+    m1, h1, g1, s1, t1 = cached(None)
+    m2, h2, g2, s2, t2 = cached(mesh)
+    check(torch.equal(g1, g2), "the cached loop drew differently")
+    loss_err = float(np.max(np.abs(m2[:, 0] - m1[:, 0]) / np.abs(m1[:, 0])))
+    hard_err = float(np.abs(h2 - h1).max())
+    check(loss_err <= LOOP_RTOL, f"cached loop losses {loss_err}")
+    np.testing.assert_allclose(h2, h1, rtol=LOOP_RTOL, atol=1e-6)
+    check((m2[:, 5] == 96).all() and (m2[:, 2] + m2[:, 3] == 96).all(),
+          "n_pos != the positive quota")
+    log(f"[dp] 20 device-cached steps over the mesh vs one device: the same "
+        f"draws; losses max rel {loss_err:.3g}, hardness max|diff| "
+        f"{hard_err:.3g} (bounds {LOOP_RTOL:g}); n_pos == 96 every step; "
+        f"steps/s (host clock): one device {20 / t1:.2f}, mesh {20 / t2:.2f}")
+    # BatchNorm's running means follow the conv biases before them, which
+    # rounding moves: they are held to the same bound
+    follow = dict(noise, **{k: torch.ones_like(v, dtype=torch.bool)
+                            for k, v in s1.items()
+                            if k.endswith("running_mean")})
+    compare_weights("20 cached steps vs one device", s2, s1, follow,
+                    LOOP_PARAM_RTOL, DP_PARAM_ATOL, 2 * lr * 20)
+
+    # a conformer at model_parallel=2
+    tp_mesh = M.make_mesh(devices=devices[:2] if len(devices) >= 2
+                          else devices, model_parallel=2)
+    conformer = Model(config={}, model_name="t", input_shape=(16, 96),
+                      model_type="conformer", layer_dim=128, n_blocks=2,
+                      dropout_prob=0.0, seed=SEED, device=cuda).train().module
+    cfg = dict(SHIPPED_CRNN)
+    one = steps(copy.deepcopy(conformer), None, x, y, 2, cfg)
+    split = steps(copy.deepcopy(conformer), tp_mesh, x, y, 2, cfg)
+    shardings = M.param_shardings(conformer, tp_mesh)
+    wide = sorted(p for s in shardings.values() if s.sharded
+                  for p in s.flax_paths)
+    check(wide, "no conformer parameter is wide enough to split")
+    loss_err = max(abs(a - b) / abs(a) for a, b in zip(one[0], split[0]))
+    log(f"[tp] conformer (default widths) over mesh {tp_mesh.shape}: "
+        f"{len(wide)} kernels split over the model axis ({wide[0]}, ...); "
+        f"2 steps, losses max rel {loss_err:.3g} (bound {DP_LOSS_RTOL:g})")
+    check(loss_err <= DP_LOSS_RTOL, f"TP step loss {loss_err}")
+    compare_weights("2 TP steps vs one device", split[2], one[2],
+                    noise_elements(conformer, x, y),
+                    DP_PARAM_RTOL, DP_PARAM_ATOL, 2 * lr * 2)
+
+    # sharded embed_clips: one mel launch per shard
+    header, model, encoder = load_nww(CRNN, device=cuda)
+    features = AudioFeatures(encoder_state_dict=encoder, device=cuda)
+    clips = np.round(seeded_audio(1024, 32000, seed=SEED)).astype(np.int16)
+    features.embed_clips(clips, batch_size=256, mesh=mesh)    # warm-up
+    seconds = {}
+    for which in ("one device", "mesh", "mesh", "one device"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if which == "mesh":
+            mel_cuda.reset_launches()
+            split = features.embed_clips(clips, batch_size=256, mesh=mesh)
+            launches = mel_cuda.launches
+        else:
+            alone = features.embed_clips(clips, batch_size=256, mesh=None)
+        seconds.setdefault(which, []).append(time.perf_counter() - t0)
+    n_shards = 4 * mesh.shape[M.DATA_AXIS]
+    err = float(np.abs(split - alone).max())
+    log(f"[dp] embed_clips int16 [1024, 32000] over the mesh vs one device: "
+        f"max|diff| {err:.3g} (bound {BATCH_TOL:g}); mel launches {launches}"
+        f" for {n_shards} shards; clips/s (host clock, in turns): "
+        + ", ".join(f"{k} {[round(1024 / t, 1) for t in v]}"
+                    for k, v in seconds.items()))
+    check(err <= BATCH_TOL, f"sharded embed_clips {err}")
+    check(launches >= n_shards, f"{launches} mel launches < {n_shards}")
+
+    # the server, data_parallel=-1
+    requests = [rng.normal(0, 1, (1, 16, 96)).astype(np.float32)
+                for _ in range(256)]
+
+    def serve(**kwargs):
+        server = rv._ScoringServer(CRNN, "verifier_only", device=cuda,
+                                   **kwargs)
+
+        async def run():
+            server.start()
+            return await asyncio.gather(*[
+                server.reply(rv.encode_features(f), None) for f in requests])
+        return server, np.array([json.loads(r)["score"]
+                                 for r in asyncio.run(run())])
+
+    server, scores = serve(data_parallel=-1, mesh_devices=devices)
+    check(server.session.mesh is not None, "the server did not shard")
+    _, scores_one = serve()
+    err = float(np.abs(scores - scores_one).max())
+    log(f"[dp] server, data_parallel=-1 over {server.session.mesh.shape}: "
+        f"256 concurrent requests vs the single-device server max|score| "
+        f"{err:.3g} (bound {BATCH_TOL:g})")
+    check(err <= BATCH_TOL, f"sharded server {err}")
+    log(f"[time] phase 21 (parallel): {time.perf_counter() - t_phase:.3f} s "
+        f"(host clock)")
+    return launches
 
 
 if __name__ == "__main__":

@@ -150,8 +150,8 @@ def _build_parser() -> argparse.ArgumentParser:
                               metavar="MS")
     server_group.add_argument("--data-parallel", type=int, default=0,
                               metavar="N",
-                              help="Accepted; serving is single-device in "
-                                   "this port.")
+                              help="Shard batched scoring over N devices "
+                                   "(-1 = all, 0 = off).")
 
     parser.add_argument("--device", default="cuda", metavar="DEVICE",
                         help="torch device for training and serving "

@@ -13,6 +13,13 @@ the last 8 frames, which is `mel_streaming_step` computed the way the batch
 path computes it; so on the card, streaming equals batch exactly, as it does
 in the reference. Other compute dtypes use ops/mel.py directly.
 
+`embed_clips` may shard each batch over a mesh's data axis (parallel/
+mesh.py): every data row's device runs its own mel launch and its own
+replica of the encoder on a contiguous slice, and the rows are gathered in
+order. Rows are independent in eval mode, so no padding is needed. By
+default the mesh is every visible card, when the frontend is on the card
+and there is more than one.
+
 The streaming state lives in three buffers that are allocated once and
 written in place (`stream_step_`, `reset`), so a CUDA graph captured over a
 step keeps reading and writing the memory that `feature_buffer` and
@@ -21,6 +28,7 @@ step keeps reading and writing the memory that `feature_buffer` and
 
 from __future__ import annotations
 
+import copy
 import functools
 from typing import NamedTuple
 
@@ -111,6 +119,7 @@ class AudioFeatures:
             encoder = encoder_from_state_dict(encoder_state_dict,
                                               self.device)
         self.encoder = encoder
+        self._replicas = {}     # device -> (encoder, its copy there)
         self._chunker = Chunker(CHUNK)
         dev = self.device
         self.state = StreamState(
@@ -167,13 +176,17 @@ class AudioFeatures:
     # -- batch path -------------------------------------------------------------
 
     @torch.no_grad()
-    def embed_clips(self, x, batch_size: int = 128,
-                    ncpu: int = 1) -> np.ndarray:
+    def embed_clips(self, x, batch_size: int = 128, ncpu: int = 1,
+                    mesh="auto") -> np.ndarray:
         """[N, samples] int16/float audio -> [N, frames, 96] float32.
         batch_size bounds the device memory of one call. `x` may be a numpy
         array or a torch tensor (a tensor already on the device is used
-        where it lies)."""
+        where it lies). `mesh` shards each batch over its data axis; "auto"
+        is every visible card when there is more than one, None one
+        device."""
         del ncpu
+        if isinstance(mesh, str):
+            mesh = self._default_mesh()
         if not isinstance(x, torch.Tensor):
             x = torch.from_numpy(np.asarray(x))
         if x.ndim == 1:
@@ -183,9 +196,47 @@ class AudioFeatures:
         in_dtype = torch.int16 if x.dtype == torch.int16 else torch.float32
         outs = []
         for i in range(0, x.shape[0], batch_size):
-            audio = x[i:i + batch_size].to(self.device, in_dtype).contiguous()
-            outs.append(self._embed_impl(audio).cpu().numpy())
+            batch = x[i:i + batch_size]
+            if mesh is None:
+                audio = batch.to(self.device, in_dtype).contiguous()
+                outs.append(self._embed_impl(audio).cpu().numpy())
+            else:
+                outs.append(self._embed_sharded(batch, in_dtype, mesh))
         return np.concatenate(outs, axis=0)
+
+    def _default_mesh(self):
+        from nanowakeword_tpu_torch.parallel.mesh import make_mesh
+        if self.device.type != "cuda" or torch.cuda.device_count() < 2:
+            return None
+        return make_mesh()
+
+    def _embed_sharded(self, batch: torch.Tensor, in_dtype,
+                       mesh) -> np.ndarray:
+        """One batch over the mesh's data axis: contiguous slices, one mel
+        launch and one encoder call per data row, gathered in order."""
+        from nanowakeword_tpu_torch.parallel import collectives
+        devices = mesh.data_devices
+        outs = []
+        for part, device in zip(torch.tensor_split(batch, len(devices)),
+                                devices):
+            if part.shape[0] == 0:
+                continue
+            audio = part.to(device, in_dtype).contiguous()
+            encoder = self._encoder_on(device)
+            mel = self._mel(audio)[:, EMB_OFFSET:]
+            outs.append(encoder(mel))
+        return collectives.gather(outs, mesh.primary).cpu().numpy()
+
+    def _encoder_on(self, device: torch.device) -> torch.nn.Module:
+        """The encoder's replica on `device` (the encoder itself on its
+        own device)."""
+        if device == next(self.encoder.parameters()).device:
+            return self.encoder
+        source, replica = self._replicas.get(device, (None, None))
+        if source is not self.encoder:
+            replica = copy.deepcopy(self.encoder).to(device)
+            self._replicas[device] = (self.encoder, replica)
+        return replica
 
     def _get_melspectrogram(self, x) -> np.ndarray:
         """Whole-clip log-mel of [samples] or [N, samples] audio, in the

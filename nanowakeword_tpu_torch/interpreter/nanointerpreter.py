@@ -105,12 +105,26 @@ class DetectionResult:
 class _LocalSession:
     """An eval session over a loaded .nww Model. Outputs the sigmoid
     probability, the exported-graph contract. A stateful model takes and
-    returns a carry: a tuple of tensors that stays on the model's device."""
+    returns a carry: a tuple of tensors that stays on the model's device.
 
-    def __init__(self, model, header):
+    With `mesh` (parallel/mesh.py), `run_batch` of a stateless model pads
+    the batch to a multiple of the data-axis size, scores a contiguous
+    slice on each data row's device (a replica of the module there), and
+    drops the padding. Stateful models stay on one device."""
+
+    def __init__(self, model, header, mesh=None):
         self.model = model
         self.header = header
         self.stateful = bool(header.get("stateful", False))
+        self.mesh = None if self.stateful else mesh
+        self._replicas = []
+        if self.mesh is not None:
+            import copy
+            own = next(model.module.parameters()).device
+            self._replicas = [
+                model.module if device == own
+                else copy.deepcopy(model.module).to(device).eval()
+                for device in self.mesh.data_devices]
 
     @property
     def feature_length(self) -> int:
@@ -142,7 +156,22 @@ class _LocalSession:
     def run_batch(self, feats: np.ndarray) -> np.ndarray:
         """[B, T, F] -> [B] probabilities (stateless models; the server's
         dynamic batching path)."""
-        return self.scores(self._tensor(feats)).cpu().numpy()
+        if self.mesh is None:
+            return self.scores(self._tensor(feats)).cpu().numpy()
+        from nanowakeword_tpu_torch.parallel import collectives
+        feats = np.asarray(feats, np.float32)
+        n, n_data = feats.shape[0], len(self._replicas)
+        pad = -n % n_data
+        if pad:
+            feats = np.concatenate(
+                [feats, np.zeros((pad,) + feats.shape[1:], np.float32)])
+        probs = []
+        for part, device, module in zip(np.split(feats, n_data),
+                                        self.mesh.data_devices,
+                                        self._replicas):
+            x = torch.as_tensor(part, device=device)
+            probs.append(torch.sigmoid(module(x)).reshape(-1))
+        return collectives.gather(probs, self.mesh.primary).cpu().numpy()[:n]
 
 
 class _OnnxSession:

@@ -180,17 +180,39 @@ class _Connection:
         return self.features.get_features(self.n_frames)
 
 
+def serving_mesh(data_parallel: int, device, devices=None):
+    """The mesh of `data_parallel`: -1 every device, N the first min(N,
+    devices), where the devices are `devices` or else every visible card
+    (the CPU is one device); None (one device) when only one is there."""
+    import torch
+
+    from nanowakeword_tpu_torch.parallel.mesh import make_mesh, visible_devices
+    device = torch.device(device)
+    if devices is None:
+        devices = visible_devices() if device.type == "cuda" else [device]
+    n_dev = (len(devices) if data_parallel < 0
+             else min(data_parallel, len(devices)))
+    if n_dev > 1:
+        logger.info(f"Data-parallel serving over {n_dev} devices")
+        return make_mesh(n_dev, devices=devices)
+    logger.info("data_parallel requested but only one device visible; "
+                "serving single-device")
+    return None
+
+
 class _ScoringServer:
     """The server's whole scoring path, without the socket and the security
     checks: the hosted model's session, the dynamic batcher, the shared
     frontend, and `reply(message, state)`, which answers one wire message.
+    `data_parallel` picks the mesh of the session (`serving_mesh`) from
+    `mesh_devices`, by default every visible card.
     """
 
     def __init__(self, model_path: str,
                  pipeline: str = PIPELINE_VERIFIER_ONLY,
                  batching: bool = True, max_batch: int = 256,
                  batch_wait_ms: float = 4.0, data_parallel: int = 0,
-                 device="cuda"):
+                 device="cuda", mesh_devices=None):
         import torch
 
         from nanowakeword_tpu_torch.export.artifact import load_nww
@@ -201,13 +223,13 @@ class _ScoringServer:
             raise ValueError(f"Invalid pipeline '{pipeline}'. "
                              f"Choose from: {sorted(_VALID_PIPELINES)}")
         onnx = model_path.endswith(".onnx")
-        if data_parallel and onnx:
+        self.device = torch.device(device)
+        mesh = None
+        if data_parallel:
+            mesh = serving_mesh(data_parallel, self.device, mesh_devices)
+        if mesh is not None and onnx:
             logger.info(".onnx serving is single-device; ignoring "
                         "--data-parallel (use the .nww artifact to shard)")
-        elif data_parallel:
-            logger.info("data_parallel requested: serving is single-device "
-                        "in the PyTorch port (multi-device is still to be "
-                        "ported, ROADMAP.md)")
         # The convolutions turn TF32 off around themselves by saving and
         # restoring a process-wide flag (utils/precision.py). Two threads
         # run convolutions here, so the flag is turned off for good: the
@@ -215,7 +237,6 @@ class _ScoringServer:
         torch.backends.cudnn.allow_tf32 = False
 
         self.pipeline = pipeline
-        self.device = torch.device(device)
         if onnx:
             # an .onnx graph bundles no encoder: the frontend takes the
             # bundled one
@@ -225,7 +246,7 @@ class _ScoringServer:
                 os.path.basename(model_path))[0]
         else:
             header, model, encoder = load_nww(model_path, device=self.device)
-            self.session = _LocalSession(model, header)
+            self.session = _LocalSession(model, header, mesh=mesh)
             self.model_name = header.get("model_name", "model")
         self.n_frames = self.session.feature_length
         self.max_batch = max_batch
@@ -302,8 +323,8 @@ def serve(model_path: str,
           device="cuda",
           _ready_callback=None) -> None:
     """Start the RemoteVerifier WebSocket server on `device`; blocks until
-    interrupted. `data_parallel` is accepted for the reference's call
-    surface: serving is single-device here."""
+    interrupted. `data_parallel` shards batched scoring of a `.nww` model
+    over the visible cards: 0 off, -1 every card, N the first N."""
     if pipeline not in _VALID_PIPELINES:
         raise ValueError(f"Invalid pipeline '{pipeline}'. "
                          f"Choose from: {sorted(_VALID_PIPELINES)}")

@@ -12,6 +12,13 @@ per step.
 
 The reference may sample with the TPU's `approx_max_k` for large pools;
 the port samples exactly for every `sampling` value.
+
+Over a mesh (`put_cached_on_mesh`, `mesh=`), the cache is replicated on
+every data row's device and the sampling, the hardness scatter and the
+metrics stay on the primary device: the same generator draws the same
+indices as on one device, each data row gathers its contiguous shard of
+the batch from its own copy, and the step runs data-parallel
+(parallel/dp.py) on the global batch.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from nanowakeword_tpu_torch.parallel import dp
 from nanowakeword_tpu_torch.train import loss as losses
 from nanowakeword_tpu_torch.train.optim import Optimizer
 from nanowakeword_tpu_torch.train.step import (forward_backward, make_loss,
@@ -41,6 +49,8 @@ class CachedData(NamedTuple):
     pools: Tuple[torch.Tensor, ...]    # per-rule global index arrays
     quotas: Tuple[int, ...]
     replace: Tuple[bool, ...]          # pool smaller than its quota
+    # over a mesh: the features on each data row's device, in row order
+    replicas: Tuple[torch.Tensor, ...] = ()
 
 
 def materialize_rows(dataset):
@@ -120,6 +130,27 @@ def build_cached_data(dataset, batch_composition: Dict[str, int],
         pools=tuple(pools), quotas=tuple(quotas), replace=tuple(replace))
 
 
+def put_cached_on_mesh(data: CachedData, mesh) -> CachedData:
+    """Replicate the cache's features on every data row's device (one copy
+    per distinct device; each must hold the whole cache, the one-device
+    budget). Labels, hardness and pools stay on the primary, where the
+    batch is sampled; only the sampled batch is sharded, inside the loop."""
+    primary = mesh.primary
+    copies = {}
+    for d in mesh.data_devices:
+        if d not in copies:
+            if d != data.features.device:
+                check_cache_fits(data.features.nelement()
+                                 * data.features.element_size(), d,
+                                 "replica of the feature cache")
+            copies[d] = data.features.to(d)
+    return data._replace(
+        features=copies[primary],
+        labels=data.labels.to(primary), hardness=data.hardness.to(primary),
+        pools=tuple(p.to(primary) for p in data.pools),
+        replicas=tuple(copies[d] for d in mesh.data_devices))
+
+
 def sample_rule(pool: torch.Tensor, hardness: torch.Tensor, quota: int,
                 with_replacement: bool,
                 generator: torch.Generator) -> torch.Tensor:
@@ -149,10 +180,13 @@ def make_cached_train_loop(module, optimizer: Optimizer, *,
                            hardness_floor: float = 0.05,
                            sampling: str = "auto",
                            compute_dtype: str = "float32",
-                           dropout_seed: Optional[int] = None):
+                           dropout_seed: Optional[int] = None,
+                           mesh=None):
     """-> run(hardness, generator, features, labels, pools) -> metrics
     [K, 6] on the device. `module`, `optimizer` and `hardness` are updated
-    in place."""
+    in place. With `mesh`, `optimizer` is what `parallel.dp.
+    shard_train_state` returned and `features` are `put_cached_on_mesh`'s
+    `replicas`."""
     if sampling not in SAMPLING_MODES:
         raise ValueError("device_cache.sampling must be 'exact', 'approx' "
                          f"or 'auto', got {sampling!r}")
@@ -163,11 +197,16 @@ def make_cached_train_loop(module, optimizer: Optimizer, *,
     def one_step(hardness, generator, features, labels, pools):
         idx = torch.cat([sample_rule(pool, hardness, q, r, generator)
                          for pool, q, r in zip(pools, quotas, replace)])
-        batch_x = features[idx]
         batch_y = labels[idx]
-        total, grad_norm, logits = forward_backward(
-            module, optimizer, total_loss, batch_x, batch_y, cdt,
-            dropout_seed)
+        if mesh is None:
+            total, grad_norm, logits = forward_backward(
+                module, optimizer, total_loss, features[idx], batch_y, cdt,
+                dropout_seed)
+        else:
+            shards = dp.shard_batch(idx, mesh).shards
+            batch = dp.ShardedBatch([f[i] for f, i in zip(features, shards)])
+            total, grad_norm, logits = dp.dp_forward_backward(
+                optimizer, total_loss, batch, batch_y, cdt, dropout_seed)
         raw = losses.raw_bce(logits, batch_y)
         new = torch.clamp(hardness_alpha * raw
                           + (1 - hardness_alpha) * hardness[idx],

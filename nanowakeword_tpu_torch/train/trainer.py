@@ -52,10 +52,17 @@ def _loss_kwargs(config) -> dict:
 
 
 class Trainer:
-    def __init__(self, model: Model, config):
+    """`mesh` (parallel/mesh.py) trains the host loop data- and
+    tensor-parallel over it; `device_cache.data_parallel` does so for the
+    device-cached loop over `mesh_devices` (by default every visible
+    card)."""
+
+    def __init__(self, model: Model, config, mesh=None):
         self.model = model.train()
         self.config = config
         self.device = model.device
+        self.mesh = mesh
+        self.mesh_devices = None
         # dropout's masks are a function of (seed, step): train/step.py
         self.seed = int(config.get("seed", 10))
 
@@ -64,12 +71,21 @@ class Trainer:
                                    total_steps=steps)
         self.compute_dtype = str(config.get("compute_dtype", "float32"))
         resolve_compute_dtype(self.compute_dtype)
-        self._step = make_train_step(
-            model.module, self.optimizer, compute_dtype=self.compute_dtype,
-            dropout_seed=self.seed,
+        step_kwargs = dict(
+            compute_dtype=self.compute_dtype, dropout_seed=self.seed,
             afl_gamma_pos=float(config.get("afl_gamma_pos", 0.0)),
             afl_gamma_neg=float(config.get("afl_gamma_neg", 4.0)),
             **_loss_kwargs(config))
+        if mesh is not None:
+            from nanowakeword_tpu_torch.parallel.dp import (
+                make_dp_train_step, shard_train_state)
+            self.optimizer = shard_train_state(model.module, self.optimizer,
+                                               mesh)
+            self._step = make_dp_train_step(model.module, self.optimizer,
+                                            mesh, **step_kwargs)
+        else:
+            self._step = make_train_step(model.module, self.optimizer,
+                                         **step_kwargs)
         self._eval = make_eval_step(model.module)
         # the host loop uploads from pinned memory on a stream of its own;
         # False makes every copy synchronous on the step's stream
@@ -236,7 +252,7 @@ class Trainer:
         early stopping, the SWA checkpoint pool, periodic hardness reset,
         durable checkpoints and --resume."""
         from nanowakeword_tpu_torch.train.cached import (
-            build_cached_data, make_cached_train_loop)
+            build_cached_data, make_cached_train_loop, put_cached_on_mesh)
         dataset, sampler = X
         config = self.config
         dc = config.get("device_cache", {})
@@ -244,8 +260,28 @@ class Trainer:
 
         cached = build_cached_data(dataset, sampler.batch_composition,
                                    sampler.feature_manifests, self.device)
+        mesh = None
+        if bool(dc.get("data_parallel", False)):
+            from nanowakeword_tpu_torch.parallel import dp as DP
+            from nanowakeword_tpu_torch.parallel import mesh as M
+            devices = self.mesh_devices
+            if devices is None:
+                devices = (M.visible_devices() if self.device.type == "cuda"
+                           else [self.device])
+            if len(devices) > 1:
+                mesh = M.make_mesh(
+                    devices=devices,
+                    model_parallel=int(dc.get("model_parallel", 1)))
+                print_info(f"Device-cache training data-parallel over "
+                           f"{mesh.size} devices (mesh {mesh.shape}).")
+                self.optimizer = DP.shard_train_state(
+                    self.model.module, self.optimizer, mesh)
+                cached = put_cached_on_mesh(cached, mesh)
+            else:
+                print_info("device_cache.data_parallel requested but only "
+                           "one device is visible; training on one device.")
         loop = make_cached_train_loop(
-            self.model.module, self.optimizer,
+            self.model.module, self.optimizer, mesh=mesh,
             quotas=cached.quotas, replace=cached.replace, k_steps=k_steps,
             hardness_alpha=float(config.get("hardness_ema_alpha", 0.05)),
             hardness_floor=float(config.get("hardness_floor", 0.05)),
@@ -342,7 +378,8 @@ class Trainer:
         stopped_early = False
 
         while step_ndx < max_steps and not stopped_early:
-            metrics = loop(hardness, generator, cached.features,
+            metrics = loop(hardness, generator,
+                           cached.replicas if mesh else cached.features,
                            cached.labels, cached.pools)
             m = metrics.cpu().numpy()   # one fetch per K steps
             losses_k = m[:, 0]
@@ -419,6 +456,9 @@ class Trainer:
         """Host arrays -> (features, labels, event) on the device. With a
         copy stream the arrays are pinned and copied without blocking on
         that stream, and the event marks the end of the copy."""
+        if self.mesh is not None:
+            from nanowakeword_tpu_torch.parallel.dp import device_put_batch
+            return (*device_put_batch(feats, labels, self.mesh), None)
         f = torch.from_numpy(np.ascontiguousarray(feats, np.float32))
         y = torch.from_numpy(np.ascontiguousarray(labels, np.float32))
         if copy_stream is None:
@@ -439,7 +479,7 @@ class Trainer:
         config = self.config
 
         dc_cfg = config.get("device_cache", {})
-        if dc_cfg and dc_cfg.get("enabled", False):
+        if dc_cfg and dc_cfg.get("enabled", False) and self.mesh is None:
             return self.train_device_cached(X, X_val, max_steps, log_path,
                                             resume_from_dir=resume_from_dir)
 

@@ -1,7 +1,8 @@
 """Audio file IO and directory preprocessing — dependency-light.
 
-A copy of `nanowakeword_tpu/utils/audio_io.py` (numpy and the stdlib; the
-JAX package's native WAV decoder is not used here).
+A copy of `nanowakeword_tpu/utils/audio_io.py`: 16-bit PCM WAVs decode
+through the native runtime (runtime.py, `csrc/nww_runtime.cc`), other
+widths through the stdlib `wave` module and numpy.
 
 Parity target: the upstream `nanowakeword/utils/audio_preprocess.py` —
 `verify_and_process_directory` converts every audio file in a directory to
@@ -20,29 +21,38 @@ from typing import Optional
 
 import numpy as np
 
+from nanowakeword_tpu_torch import runtime
 from nanowakeword_tpu_torch.utils.logger import print_info, print_warning
 
 TARGET_SR = 16000
 AUDIO_EXTENSIONS = {".wav", ".mp3", ".flac", ".m4a", ".ogg"}
+# the 16-bit PCM decoder of read_wav: None is the native
+# runtime.decode_wav_bytes; runtime.plain_decode_wav_bytes, its numpy twin,
+# is set here to measure or test one against the other
+WAV_DECODER = None
 
 
 def read_wav(path: str):
-    """-> (int16 mono samples, sample_rate). Handles 8/16/32-bit PCM WAV.
+    """-> (int16-scale float32 mono samples, sample_rate). Handles 8/16/32-bit
+    PCM WAV.
 
-    Decoded with the stdlib `wave` module and numpy. 16-bit channels fold
-    to mono as the JAX package's native decoder folds them
-    (`native/nww_runtime.cc`, `nww_wav_decode`): the integer sum divided by
-    the channel count, truncated toward zero.
+    16-bit PCM decodes with WAV_DECODER: the channels' integer sum divided
+    by their count, truncated toward zero. Other widths take the stdlib
+    path below.
     """
+    with wave.open(path, "rb") as probe:
+        is_pcm16 = probe.getsampwidth() == 2
+    if is_pcm16:
+        with open(path, "rb") as f:
+            data, sr = (WAV_DECODER or runtime.decode_wav_bytes)(f.read())
+        return data.astype(np.float32), sr
     with wave.open(path, "rb") as f:
         sr = f.getframerate()
         n = f.getnframes()
         width = f.getsampwidth()
         channels = f.getnchannels()
         raw = f.readframes(n)
-    if width == 2:
-        data = np.frombuffer(raw, dtype=np.int16).astype(np.float32)
-    elif width == 4:
+    if width == 4:
         data = (np.frombuffer(raw, dtype=np.int32).astype(np.float32)
                 / 65536.0)
     elif width == 1:
@@ -50,11 +60,7 @@ def read_wav(path: str):
                 - 128.0) * 256.0
     else:
         raise ValueError(f"Unsupported WAV sample width {width} in {path}")
-    if channels > 1 and width == 2:
-        acc = np.frombuffer(raw, dtype=np.int16).astype(np.int32).reshape(
-            -1, channels).sum(axis=1)
-        data = np.sign(acc) * (np.abs(acc) // channels)
-    elif channels > 1:
+    if channels > 1:
         data = data.reshape(-1, channels).mean(axis=1)
     return data.astype(np.float32), sr
 

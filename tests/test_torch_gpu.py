@@ -610,3 +610,81 @@ def test_pretrain_int8_threshold_follows_the_card(cuda):
     free, _ = torch.cuda.mem_get_info(cuda)
     assert abs(PE.int8_threshold(cuda) - PE.INT16_CLIP_SHARE * free) \
         <= 0.05 * free
+
+
+# -- the native runtime and data parallelism on the card ---------------------------
+
+
+def test_native_decode_feeds_the_card(cuda, tmp_path):
+    """A stereo 16-bit WAV decoded by the native runtime equals its numpy
+    twin, and its features on the card equal the CPU's."""
+    import wave
+
+    from nanowakeword_tpu_torch import runtime
+    from nanowakeword_tpu_torch.utils.audio_io import load_audio
+    rng = np.random.default_rng(21)
+    path = str(tmp_path / "stereo.wav")
+    with wave.open(path, "wb") as f:
+        f.setnchannels(2)
+        f.setsampwidth(2)
+        f.setframerate(16000)
+        f.writeframes(_audio(rng, (32000, 2)).astype(np.int16).tobytes())
+    buf = open(path, "rb").read()
+    native, sr = runtime.decode_wav_bytes(buf)
+    plain, sr_plain = runtime.plain_decode_wav_bytes(buf)
+    assert sr == sr_plain == 16000
+    np.testing.assert_array_equal(native, plain)
+    clip = load_audio(path)
+    np.testing.assert_array_equal(clip, native.astype(np.float32))
+    feats = AudioFeatures(device=cuda).embed_clips(clip[None])
+    feats_c = AudioFeatures(device="cpu").embed_clips(clip[None])
+    np.testing.assert_allclose(feats, feats_c, atol=FEATURE_TOL)
+
+
+@pytest.mark.parametrize("model_type,dropout", [("dnn", 0.3),
+                                                ("crnn", 0.3)])
+def test_dp_step_on_the_card_matches_one_device(rng, cuda, model_type,
+                                                dropout):
+    """Two replicas on the card (or every card) vs one device, one step
+    with dropout: the loss within 1e-5, the weights within 1e-4 relative
+    and 1e-6, conv biases before a BatchNorm (zero true gradient) within
+    2 lr."""
+    import copy
+
+    from nanowakeword_tpu_torch.models.model import Model
+    from nanowakeword_tpu_torch.parallel import dp
+    from nanowakeword_tpu_torch.parallel import mesh as M
+    from nanowakeword_tpu_torch.train.optim import Optimizer
+    from nanowakeword_tpu_torch.train.step import make_train_step
+    lr = 3e-3
+    cfg = {"embedding_dim": 32, "crnn_cnn_channels": [8, 16],
+           "crnn_rnn_type": "gru", "optimizer_type": "adamw",
+           "learning_rate_max": lr, "lr_scheduler_type": "onecycle"}
+    devices = M.visible_devices()
+    mesh = M.make_mesh(devices=devices if len(devices) > 1
+                       else devices * 2)
+    base = Model(config=cfg, model_name="t", input_shape=(16, 96),
+                 model_type=model_type, layer_dim=32, n_blocks=2,
+                 dropout_prob=dropout, device=cuda).train().module
+    x = torch.from_numpy(rng.normal(0, 1, (64, 16, 96)).astype(
+        np.float32)).to(cuda)
+    y = (torch.arange(64, device=cuda) % 3 == 0).float()
+    results = []
+    for sharded in (False, True):
+        module = copy.deepcopy(base)
+        opt = Optimizer(list(module.parameters()), cfg, 100)
+        if sharded:
+            opt = dp.shard_train_state(module, opt, mesh)
+            step = dp.make_dp_train_step(module, opt, mesh, dropout_seed=5)
+        else:
+            step = make_train_step(module, opt, dropout_seed=5)
+        results.append((step(x, y).loss.item(), module.state_dict()))
+    (loss1, sd1), (loss2, sd2) = results
+    assert abs(loss2 - loss1) <= 1e-5 * abs(loss1)
+    for k, v in sd1.items():
+        if not torch.is_floating_point(v):
+            continue
+        tol = 2 * lr / 25 if (k.startswith("backbone.convs.")
+                              and k.endswith(".bias")) else 0
+        diff = (sd2[k] - v).abs()
+        assert (diff <= 1e-6 + 1e-4 * v.abs() + tol).all(), k

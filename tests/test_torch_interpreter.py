@@ -379,8 +379,13 @@ def test_audio_ring_matches_jax():
         assert ours.push(x) == ref.push(x)
         assert ours.size == ref.size
         np.testing.assert_array_equal(ours.pop(n_pop), ref.pop(n_pop))
-    ours.push(np.arange(4000))
-    assert ours.size == 3000 and ours.pop(1)[0] == 1000   # oldest dropped
+    # overflow: the native ring's capacity is rounded up to 4096, and of a
+    # push past it only the newest samples are kept
+    x = np.arange(5000).astype(np.int16)
+    assert ours.push(x) == ref.push(x)
+    assert ours.size == ref.size == 4096
+    np.testing.assert_array_equal(ours.pop(1), ref.pop(1))
+    assert ours.pop(1)[0] == ref.pop(1)[0] == 905          # oldest dropped
 
 
 def test_listen_detects_scores_and_stops(monkeypatch):

@@ -160,6 +160,10 @@ def test_import_loads_no_jax():
             "from nanowakeword_tpu_torch import convert\n"
             "from nanowakeword_tpu_torch.export import artifact, fx_onnx\n"
             "from nanowakeword_tpu_torch.train import pretrain_encoder\n"
+            "from nanowakeword_tpu_torch import parallel, runtime\n"
+            "from nanowakeword_tpu_torch.parallel import (collectives, dp,"
+            " mesh)\n"
+            "runtime.load_native()\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'msgpack', 'ml_dtypes', "
             "'nanowakeword_tpu')]\n"
