@@ -37,12 +37,19 @@ and cut depth through `pretrain_encoder` (the mel kernel in every step),
 three steps on the card against the CPU, a resumed run at the mix kernel's
 clip length against a straight one, the transfer eval of the bundled asset
 against the JAX package's gates, the new asset served, and a custom module
-exported to `.onnx` through torch.fx and served. It times both kernels
-against their plain versions, batch scoring, streaming latency (eager,
-replayed and `.onnx`), the server's requests per second, the transform
-stage, training steps of both loops in float32 and bf16, each family's
-forward (module and `.onnx`), distillation steps, clip generation,
-end-to-end steps and pretraining steps.
+exported to `.onnx` through torch.fx and served. Then the native runtime
+and data and tensor parallelism. Last, the quality campaign through the
+port's tool (nanowakeword_tpu_torch/tools/quality_campaign.py): eval sets
+cut to the first files of the JAX tool's, the committed cascade judged on
+the card (one graph capture per interpreter, one mel launch per chunk,
+card vs CPU), the bars of tests/test_quality_campaign.py, the report, the
+campaign's `-G -t -T -d` at cut depth with its model judged, and the
+encoder ship decision at 12 pairs. It times both kernels against their
+plain versions, batch scoring, streaming latency (eager, replayed and
+`.onnx`), the server's requests per second, the transform stage, training
+steps of both loops in float32 and bf16, each family's forward (module and
+`.onnx`), distillation steps, clip generation, end-to-end steps,
+pretraining steps and the campaign's evaluation rate.
 
 Phases print progress lines. Every check raises on failure, so any failed
 phase exits non-zero. The line before the last is a JSON object with the
@@ -61,6 +68,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CRNN = os.path.join(ROOT, "campaign", "hey_nano_crnn.nww")
@@ -377,6 +385,10 @@ def main() -> int:
     # -- 21. the native runtime; data and tensor parallelism ----------------
     runtime_phase(rng, e2e.pop("wavs"))
     parallel_launches = parallel_phase(rng, cuda, card)
+    # -- 22. the quality campaign: the committed cascade judged, the
+    # campaign's pipeline at cut depth ----------------------------------------
+    with tempfile.TemporaryDirectory(prefix="nww_smoke_") as work:
+        quality = quality_phase(cuda, card, Path(work))
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "nanowakeword_tpu"))
@@ -388,7 +400,8 @@ def main() -> int:
         "source": "nanowakeword_tpu_torch/csrc/mel_frontend.cu",
         "replaces": "nanowakeword_tpu/ops/mel_pallas.py:269",
         "launches": (main_launches + serving_launches + e2e["mel"]
-                     + onnx_launches + pretrain["mel"] + parallel_launches),
+                     + onnx_launches + pretrain["mel"] + parallel_launches
+                     + quality["mel"]),
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -400,7 +413,8 @@ def main() -> int:
         "route": "cuda",
         "source": "nanowakeword_tpu_torch/csrc/mix_gain.cu",
         "replaces": "nanowakeword_tpu/ops/mix_pallas.py:93",
-        "launches": train["mix_launches"] + e2e["mix"] + pretrain["mix"],
+        "launches": (train["mix_launches"] + e2e["mix"] + pretrain["mix"]
+                     + quality["mix"]),
         "max_abs_err": mix["max_err"],
         "ms": mix["ms"],
         "plain_ms": mix["plain_ms"],
@@ -2788,6 +2802,278 @@ def parallel_phase(rng, cuda, card) -> int:
     log(f"[time] phase 21 (parallel): {time.perf_counter() - t_phase:.3f} s "
         f"(host clock)")
     return launches
+
+
+# Phase 22: the quality campaign on the card. Eval sets cut to the first
+# files of each of the JAX tool's sets (formant 40 of 400, resonator /
+# harmonic / fx 12 of 150 each, 8 of 240 speech, 4 of 60 adversarial and
+# 4 of 120 noise streams of 30 s; 24 of 600 train noises and 24 of 300
+# impulses), the pipeline cut to 64 clips per task, 300 of 20000 steps and
+# 200 of 8000 distillation steps.
+QUALITY_CUT = dict(n_train_noise=24, n_rir=24, n_eval_pos=40,
+                   n_eval_pos_reson=12, n_eval_pos_harm=12, n_eval_pos_fx=12,
+                   eval_speech_files=8, eval_adv_files=4, eval_noise_files=4)
+PIPELINE_CUT = dict(steps=300, distill_steps=200, clips_per_task=64)
+# the regression bars of tests/test_quality_campaign.py
+BARS_OP = {"threshold": 0.85, "patience": 2}
+
+
+def quality_phase(cuda, card, work) -> dict:
+    """Phase 22: the campaign's judgement through the port's tool
+    (nanowakeword_tpu_torch/tools/quality_campaign.py) on the card. `prep`
+    at QUALITY_CUT; `evaluate`, `evaluate_lite`, `sweep` and `cascade` of
+    the committed cascade: one graph capture per interpreter, mel launches
+    == chunks streamed (+ the capture's warm-up steps), card vs CPU traces
+    on the first files of each set within SCORE_TOL, files within 1e-3 of
+    a threshold counted; the regression bars of tests/
+    test_quality_campaign.py on the card; `report` into a temporary
+    folder; the pipeline `-G`, `-t`, `-T -d` at PIPELINE_CUT (mix and mel
+    launches in `-t`) and its model judged by `evaluate`; `ship_decision`
+    at 12 pairs. -> the kernels' launches."""
+    import numpy as np
+    from nanowakeword_tpu_torch import NanoInterpreter
+    from nanowakeword_tpu_torch.interpreter.nanointerpreter import _FusedStep
+    from nanowakeword_tpu_torch.ops import mel_cuda, mix_cuda
+    from nanowakeword_tpu_torch.test_model.evaluate_model_with_audio import \
+        stream_scores
+    from nanowakeword_tpu_torch.tools import quality_campaign as qc
+    from nanowakeword_tpu_torch.tools import ship_decision_ci
+    from nanowakeword_tpu_torch.utils.audio_io import load_audio
+
+    seconds = {"phase": time.perf_counter()}
+    launches = {"mel": 0, "mix": 0}
+
+    def timed(name, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    def driven(name, fn, *args, **kwargs):
+        """fn on the card with the counters set to 0 just before and read
+        just after; -> (result, mel launches, mel captures, mix)."""
+        mel_cuda.reset_launches()
+        mix_cuda.reset_launches()
+        captured = mel_cuda.captured
+        out = timed(name, fn, *args, **kwargs)
+        counts = (mel_cuda.launches, mel_cuda.captured - captured,
+                  mix_cuda.launches)
+        launches["mel"] += counts[0]
+        launches["mix"] += counts[2]
+        return (out,) + counts
+
+    timed("prep", qc.stage_prep, work=work, **QUALITY_CUT)
+    model_dir = qc.COMMITTED
+
+    def judged(name, fn, **kwargs):
+        res, mel, captures, _ = driven(name, fn, work=work, device=cuda,
+                                       **kwargs)
+        chunks = sum(res["rate"][s]["chunks"] for s in qc.EVAL_SETS)
+        log(f"[quality] {name}: {chunks} chunks, mel launches {mel}, "
+            f"graph captures {captures} (mel launches inside the graph)")
+        check(captures == 1, f"{name}: {captures} captures, one expected")
+        check(mel == chunks + _FusedStep.WARMUP_STEPS,
+              f"{name}: {mel} mel launches for {chunks} chunks")
+        for s in qc.EVAL_SETS:
+            r = res["rate"][s]
+            log(f"[time] {card}: {name} {s}: {r['files']} files, "
+                f"{r['files_per_s']:.2f} files/s, "
+                f"{r['audio_h_per_wall_s']:.5f} audio h per wall s, chunk "
+                f"p50 {r['chunk_ms_p50']:.3f} ms p90 {r['chunk_ms_p90']:.3f}"
+                f" ms (host clock)")
+            near = res["near_threshold"][s]
+            log(f"[quality] {name} {s}: {res[s]}; files within 1e-3 of a "
+                f"threshold: " + ", ".join(
+                    f"{k} {len(v)} {[n['file'] for n in v]}"
+                    for k, v in near.items()))
+        return res
+
+    full = judged("evaluate", qc.stage_evaluate, model_dir=model_dir)
+    lite = judged("evaluate_lite", qc.stage_evaluate, model_suffix="_lite",
+                  model_dir=model_dir)
+    sweep = timed("sweep", qc.stage_sweep, work=work)
+    log(f"[quality] sweep: operating point {sweep['operating_point']}")
+    cascade = judged("cascade", qc.stage_evaluate_cascade,
+                     model_dir=model_dir)
+    log(f"[quality] cascade: verifier skip rate on negatives "
+        f"{cascade['verifier_skip_rate_negatives']}")
+    for res in (full, lite, cascade):
+        check(all(res[s]["skipped_files"] == 0 for s in qc.EVAL_SETS),
+              "a synthesized eval file was skipped")
+
+    # card vs CPU on the first files of each set (the first 10 s of a
+    # stream: the streaming trace of a prefix is the prefix of the trace)
+    def cpu_traces(path, cascade_mode, keys, subset):
+        interp = NanoInterpreter.load_model(str(path), cascade=cascade_mode,
+                                            device="cpu")
+        rows = {}
+        for name, files in subset.items():
+            out = []
+            for f in files:
+                audio = load_audio(str(work / "eval" / name / f))[:160000]
+                if not cascade_mode:
+                    out.append(stream_scores(interp, audio, keys[0])[None])
+                    continue
+                interp.reset()
+                row = []
+                for s in range(0, len(audio) - 1279, 1280):
+                    res = interp.predict(audio[s:s + 1280].astype(np.int16))
+                    row.append([res.get(k, 0.0) for k in keys])
+                out.append(np.asarray(row, np.float32).T)
+            rows[name] = out
+        return rows
+
+    t0 = time.perf_counter()
+    worst = {}
+    for label, path, mode, keys, trace_dir in (
+            ("full", model_dir / "hey_nano_crnn.nww", False,
+             ["hey_nano_crnn"], "traces"),
+            ("lite", model_dir / "hey_nano_crnn_lite.nww", False,
+             ["hey_nano_crnn_lite"], "traces_lite"),
+            ("cascade", model_dir / "hey_nano_crnn.nww", True,
+             ["hey_nano_crnn", "hey_nano_crnn_lite"], "traces_cascade")):
+        subset = {}
+        for name in qc.EVAL_SETS:
+            files = json.loads((work / trace_dir / f"{name}_files.json")
+                               .read_text())
+            subset[name] = files[:2 if name.startswith("positive") else 1]
+        cpu = cpu_traces(path, mode, keys, subset)
+        err = 0.0
+        for name, rows in cpu.items():
+            if mode:
+                card_rows = [np.load(work / trace_dir / f"{name}_{w}.npy")
+                             for w in ("verifier", "gate")]
+            else:
+                card_rows = [np.load(work / trace_dir / f"{name}.npy")]
+            for i, row in enumerate(rows):
+                for k, ours in enumerate(row):
+                    n = len(ours)
+                    err = max(err, float(np.abs(
+                        card_rows[k][i][:n] - ours).max()))
+        worst[label] = err
+        check(err <= SCORE_TOL, f"{label} card vs CPU {err}")
+    seconds["card vs CPU"] = time.perf_counter() - t0
+    log(f"[quality] card vs CPU on the first 2 positives and the first 10 "
+        f"s of the first stream of each set: max|score| {worst} (bound "
+        f"{SCORE_TOL:g})")
+
+    # the regression bars of tests/test_quality_campaign.py, on the card
+    bars, mel, captures, _ = driven("bars", quality_bars, cuda)
+    log(f"[quality] regression bars on the card: {bars}; mel launches "
+        f"{mel}, graph captures {captures}")
+
+    with tempfile.TemporaryDirectory(prefix="nww_report_") as out:
+        merged = timed("report", qc.stage_report, work=work, out=out)
+        check(set(merged) >= {"full_model", "lite_gate",
+                              "operating_point_sweep", "cascade"},
+              f"report has {sorted(merged)}")
+        check(os.path.exists(os.path.join(out, "results.json")),
+              "report wrote no results.json")
+
+    # the pipeline of the campaign's config at cut depth
+    _, mel_g, _, mix_g = driven("-G", qc.stage_pipeline, "G", work=work,
+                                device=cuda, **PIPELINE_CUT)
+    _, mel_t, _, mix_t = driven("-t", qc.stage_pipeline, "t", work=work,
+                                device=cuda)
+    log(f"[launches] phase 22 -t: mix kernel {mix_t}, mel kernel {mel_t}")
+    check(mix_t > 0 and mel_t > 0, "-t launched no mix or mel kernel")
+    driven("-T -d", qc.stage_pipeline, "Td", work=work, device=cuda)
+    trained = judged("evaluate (trained)", qc.stage_evaluate,
+                     out_name="eval_trained")
+    log(f"[quality] the model trained at {PIPELINE_CUT}: " + "; ".join(
+        f"{s} {trained[s]}" for s in qc.EVAL_SETS))
+
+    report, mel, _, _ = driven("ship_decision", ship_decision_ci.ship_decision,
+                               n_pairs=12, boot=1000, device=cuda)
+    log(f"[quality] ship_decision at 12 pairs on the card: accs "
+        f"{report['accs']}, ship_score {report['ship_score']}, delta CI "
+        f"{report['delta_ci95']}; mel launches {mel}")
+    check(mel > 0, "ship_decision launched no mel kernel")
+
+    total = time.perf_counter() - seconds.pop("phase")
+    log(f"[launches] phase 22: mel kernel {launches['mel']}, mix kernel "
+        f"{launches['mix']}")
+    log(f"[time] phase 22: {total:.3f} s, of it " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in seconds.items()) + " (host clock)")
+    return launches
+
+
+def quality_bars(cuda) -> dict:
+    """The bars of tests/test_quality_campaign.py on the card: the
+    committed cascade streamed over that test's regenerated clips (25
+    positives, 8 speech streams of 10 s and 3 noise clips, 15 fx
+    positives). -> each bar's measured count."""
+    import numpy as np
+    from nanowakeword_tpu_torch import NanoInterpreter
+    from nanowakeword_tpu_torch.tools import quality_campaign as qc
+
+    words = qc._words()
+    rng = np.random.default_rng(55_000_000)
+    pos = [qc._positive_eval_clip(rng, 55_000_000 + i) for i in range(25)]
+    srng = np.random.default_rng(56_000_000)
+    negs = [qc._speech_stream(srng, words, 10) for _ in range(8)]
+    negs += [qc._mic_floor(np.random.default_rng(57_000_000 + i), 160000)
+             * 30 for i in range(3)]
+    frng = np.random.default_rng(58_000_000)
+    fx = [qc._positive_eval_clip(frng, 58_000_000 + i, channel="formant_fx")
+          for i in range(15)]
+
+    def traces(interp, keys, clips):
+        out = []
+        for clip in clips:
+            audio = np.clip(np.asarray(clip) * 32767.0, -32768,
+                            32767).astype(np.int16)
+            interp.reset()
+            rows = []
+            for i in range(0, len(audio) - 1279, 1280):
+                res = interp.predict(audio[i:i + 1280])
+                rows.append([res.get(k, 0.0) for k in keys])
+            out.append(np.asarray(rows).T)
+        return out
+
+    def detect(rows, thr=BARS_OP["threshold"], pat=BARS_OP["patience"]):
+        return int(sum(qc._patience_score(r[None], pat)[0] >= thr
+                       for r in rows))
+
+    full = NanoInterpreter.load_model(str(qc.COMMITTED / "hey_nano_crnn.nww"),
+                                      device=cuda)
+    lite = NanoInterpreter.load_model(
+        str(qc.COMMITTED / "hey_nano_crnn_lite.nww"), device=cuda)
+    cascade = NanoInterpreter.load_model(
+        str(qc.COMMITTED / "hey_nano_crnn.nww"), cascade=True, device=cuda)
+    key = ["hey_nano_crnn"]
+    p, n, f = (traces(full, key, c) for c in (pos, negs, fx))
+    lp = traces(lite, ["hey_nano_crnn_lite"], pos)
+    ck = [cascade.cascade_config["verifier"], cascade.cascade_config["gate"]]
+    cp, cn = traces(cascade, ck, pos), traces(cascade, ck, negs)
+    gate_thr = cascade.cascade_config["gate_threshold"]
+    invoke = float(np.mean(np.concatenate([r[1] for r in cn]) >= gate_thr))
+    bars = [  # (what, measured, at least, at most)
+        ("detected at 0.90, of 25", sum(r[0].max() >= 0.90 for r in p),
+         23, None),
+        ("false alarms at 0.90, of 11", sum(r[0].max() > 0.90 for r in n),
+         None, 1),
+        ("gate detected at 0.3, of 25", sum(r[0].max() >= 0.3 for r in lp),
+         23, None),
+        ("detected at the production point, of 25",
+         detect([r[0] for r in p]), 22, None),
+        ("false alarms at the production point, of 11",
+         detect([r[0] for r in n]), None, 1),
+        ("fx detected at 0.90, of 15", sum(r[0].max() >= 0.90 for r in f),
+         13, None),
+        ("fx detected at the production point, of 15",
+         detect([r[0] for r in f]), 12, None),
+        ("cascade detected at the production point, of 25",
+         detect([r[0] for r in cp]), 21, None),
+        ("cascade false alarms at the production point, of 11",
+         detect([r[0] for r in cn]), None, 1),
+        ("verifier invocation rate on negatives", invoke, None, 0.5),
+    ]
+    for what, value, low, high in bars:
+        check((low is None or value >= low)
+              and (high is None or value <= high),
+              f"regression bar, {what}: {value}")
+    return {what: float(value) for what, value, _, _ in bars}
 
 
 if __name__ == "__main__":

@@ -3,8 +3,10 @@ versions, the serving path on the card against the same port on the CPU
 (batch, the streaming cascade through the replayed one-call step, a
 stateful model, the server's scoring path), the augmentation chain
 launching the mix kernel, end-to-end training's module and step, whose
-forward launches the mel kernel, and `.onnx` graphs on the card: the torch
-runtime against the CPU, and an `.onnx` cascade behind the mel kernel.
+forward launches the mel kernel, `.onnx` graphs on the card: the torch
+runtime against the CPU, and an `.onnx` cascade behind the mel kernel, and
+the quality campaign's evaluator: the card against the CPU, one graph
+capture per interpreter across files.
 
 Every test here is `gpu`-marked and skips without a CUDA device. On a
 machine with one: `python -m pytest -m gpu tests/test_torch_gpu.py -q`.
@@ -688,3 +690,58 @@ def test_dp_step_on_the_card_matches_one_device(rng, cuda, model_type,
                               and k.endswith(".bias")) else 0
         diff = (sd2[k] - v).abs()
         assert (diff <= 1e-6 + 1e-4 * v.abs() + tol).all(), k
+
+
+def _campaign_wavs(root):
+    """3 held-out positives of the campaign (3 s) in root/pos and one
+    10-s speech stream in root/stream."""
+    from nanowakeword_tpu_torch.tools import quality_campaign as qc
+    for sub in ("pos", "stream"):
+        os.makedirs(os.path.join(root, sub))
+    rng = np.random.default_rng(1_000_000)
+    for i in range(3):
+        qc._write_wav(os.path.join(root, "pos", f"p{i}.wav"),
+                      qc._positive_eval_clip(rng, 1_000_000 + i))
+    qc._write_wav(os.path.join(root, "stream", "s0.wav"), qc._speech_stream(
+        np.random.default_rng(2_000_000), qc._words(), 10))
+
+
+def test_campaign_evaluator_card_matches_cpu(cuda, tmp_path):
+    """The campaign's `_eval_dir` (the evaluator's per-file streaming) of
+    the full model and of the gate, card vs CPU."""
+    from nanowakeword_tpu_torch.tools import quality_campaign as qc
+    _campaign_wavs(str(tmp_path))
+    for path in (CRNN, CRNN.replace(".nww", "_lite.nww")):
+        key = os.path.splitext(os.path.basename(path))[0]
+        out = {}
+        for device in (cuda, torch.device("cpu")):
+            interp = NanoInterpreter.load_model(path, device=device)
+            out[device.type] = [qc._eval_dir(interp, key, tmp_path / sub,
+                                             sub) for sub in ("pos",
+                                                              "stream")]
+        for card, cpu in zip(out["cuda"], out["cpu"]):
+            assert card[2] == cpu[2] and card[3] == cpu[3] == 0
+            np.testing.assert_allclose(card[0], cpu[0], atol=SCORE_TOL)
+            assert card[0].max() > 0
+
+
+def test_one_capture_per_interpreter(cuda, tmp_path):
+    """The evaluator resets the interpreter before every file: the graph
+    is captured once, at load, and replayed for every chunk of every
+    file, one mel launch each."""
+    from nanowakeword_tpu_torch.test_model.evaluate_model_with_audio import \
+        stream_scores
+    from nanowakeword_tpu_torch.utils.audio_io import load_audio
+    _campaign_wavs(str(tmp_path))
+    captured = mel_cuda.captured
+    interp = NanoInterpreter.load_model(CRNN, cascade=True, device=cuda)
+    graph = interp._fused_step.graph
+    assert graph is not None and mel_cuda.captured == captured + 1
+    before, chunks = mel_cuda.launches, 0
+    for path in sorted(tmp_path.rglob("*.wav")):
+        chunks += len(stream_scores(interp, load_audio(str(path)),
+                                    "hey_nano_crnn"))
+    assert chunks == 3 * 38 + 125
+    assert interp._fused_step.graph is graph
+    assert mel_cuda.captured == captured + 1
+    assert mel_cuda.launches - before == chunks

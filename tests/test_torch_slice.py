@@ -163,6 +163,10 @@ def test_import_loads_no_jax():
             "from nanowakeword_tpu_torch import parallel, runtime\n"
             "from nanowakeword_tpu_torch.parallel import (collectives, dp,"
             " mesh)\n"
+            "from nanowakeword_tpu_torch.tools import (quality_campaign,"
+            " ship_decision_ci, encoder_ladder, eval_encoder_transfer)\n"
+            "from nanowakeword_tpu_torch.test_model import ("
+            "evaluate_model_with_audio, evaluate_model_with_features)\n"
             "runtime.load_native()\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'msgpack', 'ml_dtypes', "
