@@ -38,13 +38,19 @@ three steps on the card against the CPU, a resumed run at the mix kernel's
 clip length against a straight one, the transfer eval of the bundled asset
 against the JAX package's gates, the new asset served, and a custom module
 exported to `.onnx` through torch.fx and served. Then the native runtime
-and data and tensor parallelism. Last, the quality campaign through the
+and data and tensor parallelism. Then the quality campaign through the
 port's tool (nanowakeword_tpu_torch/tools/quality_campaign.py): eval sets
 cut to the first files of the JAX tool's, the committed cascade judged on
 the card (one graph capture per interpreter, one mel launch per chunk,
 card vs CPU), the bars of tests/test_quality_campaign.py, the report, the
 campaign's `-G -t -T -d` at cut depth with its model judged, and the
-encoder ship decision at 12 pairs. It times both kernels against their
+encoder ship decision at 12 pairs. Last, the last programs: custom
+modules made of the torch.fx exporter's newer lowerings (attention by
+softmax over einsum, functional pooling with a layer norm by var and
+rsqrt, where / compare gating, a list index with argmax gating) exported at
+a dynamic batch and held to their modules, the first three served on the
+card behind the mel kernel, and the port's quickstart notebook run cell by
+cell on the card. It times both kernels against their
 plain versions, batch scoring, streaming latency (eager, replayed and
 `.onnx`), the server's requests per second, the transform stage, training
 steps of both loops in float32 and bf16, each family's forward (module and
@@ -389,6 +395,10 @@ def main() -> int:
     # campaign's pipeline at cut depth ----------------------------------------
     with tempfile.TemporaryDirectory(prefix="nww_smoke_") as work:
         quality = quality_phase(cuda, card, Path(work))
+    # -- 23. the last programs: custom modules of every new lowering, served;
+    # the quickstart notebook on the card ---------------------------------------
+    with tempfile.TemporaryDirectory(prefix="nww_smoke_") as work:
+        programs = last_programs_phase(cuda, card, Path(work))
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "nanowakeword_tpu"))
@@ -401,7 +411,7 @@ def main() -> int:
         "replaces": "nanowakeword_tpu/ops/mel_pallas.py:269",
         "launches": (main_launches + serving_launches + e2e["mel"]
                      + onnx_launches + pretrain["mel"] + parallel_launches
-                     + quality["mel"]),
+                     + quality["mel"] + programs["mel"]),
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -414,7 +424,7 @@ def main() -> int:
         "source": "nanowakeword_tpu_torch/csrc/mix_gain.cu",
         "replaces": "nanowakeword_tpu/ops/mix_pallas.py:93",
         "launches": (train["mix_launches"] + e2e["mix"] + pretrain["mix"]
-                     + quality["mix"]),
+                     + quality["mix"] + programs["mix"]),
         "max_abs_err": mix["max_err"],
         "ms": mix["ms"],
         "plain_ms": mix["plain_ms"],
@@ -1889,7 +1899,8 @@ def pretrain_phase(cuda, card, work) -> dict:
 
     # (g) a custom module's .onnx (torch.fx), served on the card
     since = now()
-    custom_onnx(cuda, work)
+    custom_onnx(cuda, work, ZOO_CUSTOM, "MyNet", {"width": 6},
+                "Linear, BatchNorm1d, Linear")
     count(since)
 
     total = time.perf_counter() - seconds.pop("phase")
@@ -2032,32 +2043,62 @@ ZOO_CUSTOM = (
     "        return self.b(self.norm(self.a(x.flatten(1))))\n")
 
 
-def custom_onnx(cuda, work) -> None:
+def custom_onnx(cuda, work, source, class_name, params, what,
+                serve=True) -> None:
     """A user's custom module exported to `.onnx` through torch.fx by the
-    `-T` exporter, served on the card by NanoInterpreter.load_model: graph
-    vs module on the card within ONNX_TOL, card vs CPU within SCORE_TOL."""
+    `-T` exporter at a dynamic batch: the graph vs the module in the numpy
+    evaluator at batch 2 and 7 within ONNX_TOL; with `serve`, served on
+    the card by NanoInterpreter.load_model: 256 windows vs the module on
+    the card within ONNX_TOL, 25 chunks card vs CPU within SCORE_TOL."""
+    import copy
+
     import numpy as np
     import torch
     from nanowakeword_tpu_torch import NanoInterpreter
+    from nanowakeword_tpu_torch.export import onnx_eval
     from nanowakeword_tpu_torch.export.artifact import export_onnx_model
     from nanowakeword_tpu_torch.export.frontend import seeded_audio
     from nanowakeword_tpu_torch.export.onnx_proto import load_model
     from nanowakeword_tpu_torch.models.model import Model
 
-    src = os.path.join(work, "my_arch.py")
+    name = class_name.lower()
+    src = os.path.join(work, f"{name}.py")
     with open(src, "w") as f:
-        f.write(ZOO_CUSTOM)
-    cfg = {"custom_model_config": {"module_path": src, "class_name": "MyNet",
-                                   "params": {"width": 6}}}
-    model = Model(config=cfg, model_name="custom", input_shape=(16, 96),
+        f.write(source)
+    cfg = {"custom_model_config": {"module_path": src,
+                                   "class_name": class_name,
+                                   "params": params}}
+    model = Model(config=cfg, model_name=name, input_shape=(16, 96),
                   model_type="custom", seed=SEED, device=cuda)
-    bn = model.module.backbone.norm
     with torch.no_grad():               # running statistics of a trained BN
-        bn.running_mean.uniform_(-0.5, 0.5)
-        bn.running_var.uniform_(0.5, 2.0)
-    path = export_onnx_model(model, (16, 96), cfg, "custom", work)
-    check(path is not None, "the custom module did not export")
-    batch_dim = load_model(path).graph.inputs[0].shape[0]
+        for bn in model.module.modules():
+            if isinstance(bn, torch.nn.BatchNorm1d):
+                bn.running_mean.uniform_(-0.5, 0.5)
+                bn.running_var.uniform_(0.5, 2.0)
+    path = export_onnx_model(model, (16, 96), cfg, name, work)
+    check(path is not None, f"the custom module {class_name} did not export")
+    graph = load_model(path)
+    batch_dim = graph.graph.inputs[0].shape[0]
+    check(batch_dim == "batch_size", f"{class_name} batch dim {batch_dim}")
+    ops = sorted({n.op_type for n in graph.graph.nodes})
+    module_cpu = copy.deepcopy(model.module).cpu().eval()
+    out = {"eval": 0.0}
+    for batch in (2, 7):
+        x = np.random.default_rng(SEED + batch).normal(
+            0, 1, (batch, 16, 96)).astype(np.float32)
+        with torch.no_grad():
+            want = torch.sigmoid(module_cpu(torch.from_numpy(x))).numpy()
+        got = onnx_eval.run(graph, {"features": x})["score"]
+        out["eval"] = max(out["eval"], float(np.abs(got - want).max()))
+    check(out["eval"] <= ONNX_TOL, f"{class_name} .onnx vs module in the "
+          f"numpy evaluator {out['eval']}")
+    line = (f"[onnx] custom module {class_name} ({what}) exported through "
+            f"torch.fx, batch dim {batch_dim!r}, ops {ops}: graph vs module "
+            f"in onnx_eval at batch 2 and 7 max|score| {out['eval']:.3g}")
+    if not serve:
+        log(line + f" (bound {ONNX_TOL:g}; not served: the torch ONNX "
+            "runtime, as the JAX package's, runs no Gather / ArgMax)")
+        return
     feats = np.random.default_rng(SEED).normal(0, 1, (256, 16, 96)).astype(
         np.float32)
     interp = NanoInterpreter.load_model(path, device=cuda)
@@ -2066,20 +2107,18 @@ def custom_onnx(cuda, work) -> None:
     with torch.no_grad():
         want = torch.sigmoid(model.module.eval()(
             torch.from_numpy(feats).to(cuda))).cpu().numpy()[:, 0]
-    err = float(np.abs(got - want).max())
+    out["card"] = float(np.abs(got - want).max())
     clip = np.round(seeded_audio(1, 32000, seed=5)[0]).astype(np.int16)
     traces = [np.array([r.score for r in NanoInterpreter.load_model(
         path, device=device).predict_clip(clip)]) for device in (cuda, "cpu")]
-    served = float(np.abs(traces[0] - traces[1]).max())
-    log(f"[onnx] custom module (Linear, BatchNorm1d, Linear) exported "
-        f"through torch.fx, batch dim {batch_dim!r}: 256 windows on the "
-        f"card vs the module max|score| {err:.3g} (bound {ONNX_TOL:g}); "
-        f"served 25 chunks card vs CPU max|score| {served:.3g} (bound "
-        f"{SCORE_TOL:g})")
-    check(batch_dim == "batch_size", f"batch dim {batch_dim}")
-    check(err <= ONNX_TOL, f"custom .onnx vs module {err}")
+    out["served"] = float(np.abs(traces[0] - traces[1]).max())
+    log(line + f"; 256 windows on the card vs the module max|score| "
+        f"{out['card']:.3g} (bound {ONNX_TOL:g}); served 25 chunks card vs "
+        f"CPU max|score| {out['served']:.3g} (bound {SCORE_TOL:g})")
+    check(out["card"] <= ONNX_TOL, f"{class_name} .onnx vs module {out}")
     check(len(traces[0]) == 25 and np.isfinite(traces[0]).all()
-          and served <= SCORE_TOL, f"custom .onnx served card vs CPU {served}")
+          and out["served"] <= SCORE_TOL,
+          f"{class_name} .onnx served card vs CPU {out['served']}")
 
 
 ONNX_TOL = 1e-5     # an .onnx graph against the port's module, both on the
@@ -3074,6 +3113,166 @@ def quality_bars(cuda) -> dict:
               and (high is None or value <= high),
               f"regression bar, {what}: {value}")
     return {what: float(value) for what, value, _, _ in bars}
+
+
+# custom modules made of the lowerings that the torch.fx exporter shares
+# with the JAX package's jaxpr exporter (export/fx_onnx.py)
+LOWERINGS_SOURCE = (
+    "import torch\n"
+    "import torch.nn.functional as F\n"
+    "class AttnNet(torch.nn.Module):\n"
+    "    def __init__(self, input_shape, embedding_dim, width=64, heads=4):\n"
+    "        super().__init__()\n"
+    "        self.proj = torch.nn.Linear(input_shape[1], width)\n"
+    "        self.qkv = torch.nn.Linear(width, 3 * width)\n"
+    "        self.out = torch.nn.Linear(width, embedding_dim)\n"
+    "        self.heads, self.scale = heads, (width // heads) ** -0.5\n"
+    "    def forward(self, x):\n"
+    "        h = self.proj(x)\n"
+    "        b, t, d = h.shape\n"
+    "        q, k, v = self.qkv(h).chunk(3, dim=-1)\n"
+    "        q = q.reshape(b, t, self.heads, d // self.heads)\n"
+    "        k = k.reshape(b, t, self.heads, d // self.heads)\n"
+    "        v = v.reshape(b, t, self.heads, d // self.heads)\n"
+    "        w = torch.softmax(torch.einsum('bqhe,bkhe->bhqk', q, k)\n"
+    "                          * self.scale, dim=-1)\n"
+    "        o = torch.einsum('bhqk,bkhe->bqhe', w, v).reshape(b, t, d)\n"
+    "        return self.out((h + o).mean(dim=1))\n"
+    "class PoolNorm(torch.nn.Module):\n"
+    "    def __init__(self, input_shape, embedding_dim, width=64):\n"
+    "        super().__init__()\n"
+    "        self.conv = torch.nn.Conv1d(input_shape[1], width, 3,\n"
+    "                                    padding=1)\n"
+    "        self.scale = torch.nn.Parameter(torch.linspace(0.5, 1.5,\n"
+    "                                                       width))\n"
+    "        self.shift = torch.nn.Parameter(torch.linspace(-0.1, 0.1,\n"
+    "                                                       width))\n"
+    "        self.out = torch.nn.Linear(width, embedding_dim)\n"
+    "    def forward(self, x):\n"
+    "        h = F.avg_pool1d(torch.relu(self.conv(x.transpose(1, 2))), 2)\n"
+    "        h = h.transpose(1, 2)\n"
+    "        h = (h - h.mean(dim=-1, keepdim=True)) * torch.rsqrt(\n"
+    "            h.var(dim=-1, keepdim=True, unbiased=False) + 1e-5)\n"
+    "        return self.out((h * self.scale + self.shift).mean(dim=1))\n"
+    "class GatedNet(torch.nn.Module):\n"
+    "    def __init__(self, input_shape, embedding_dim, width=64):\n"
+    "        super().__init__()\n"
+    "        self.value = torch.nn.Linear(input_shape[1], width)\n"
+    "        self.gate = torch.nn.Linear(input_shape[1], width)\n"
+    "        self.out = torch.nn.Linear(width, embedding_dim)\n"
+    "    def forward(self, x):\n"
+    "        h, g = self.value(x), self.gate(x)\n"
+    "        h = torch.where(g > 0, h, 0.1 * h) * (h.abs() <= 2.0)\n"
+    "        return self.out(h.clamp(-1.5, 1.5).amax(dim=1))\n"
+    "class TakeGate(torch.nn.Module):\n"
+    "    def __init__(self, input_shape, embedding_dim, width=32):\n"
+    "        super().__init__()\n"
+    "        self.a = torch.nn.Linear(input_shape[1], width)\n"
+    "        self.out = torch.nn.Linear(width, embedding_dim)\n"
+    "    def forward(self, x):\n"
+    "        h = self.a(x)\n"
+    "        t = h.shape[1]\n"
+    "        h = h[:, [0, t // 4, t // 2, t - 1], :]\n"
+    "        gate = F.one_hot(h.argmax(dim=-1), h.shape[-1])\n"
+    "        return self.out((h * (0.5 + gate)).mean(dim=1))\n")
+# (class, what it is made of, served on the card)
+LOWERINGS = (
+    ("AttnNet", "attention: torch.softmax over torch.einsum, chunk", True),
+    ("PoolNorm", "F.avg_pool1d, a layer norm by var and rsqrt", True),
+    ("GatedNet", "torch.where, compares, clamp", True),
+    ("TakeGate", "a list index, argmax and one_hot gating", False))
+NOTEBOOK = os.path.join("notebooks",
+                        "Train_Your_First_Wake_Word_Model_torch.ipynb")
+
+
+def last_programs_phase(cuda, card, work) -> dict:
+    """Phase 23: (a) custom modules of the exporter's new lowerings,
+    exported at a dynamic batch, each graph held to its module in the
+    numpy evaluator, and the three without Gather / ArgMax served on the
+    card behind the mel kernel, card vs CPU; (b) the port's quickstart
+    notebook run cell by cell on the card in a temporary folder, at its
+    own 2000 steps: `-t` launches the mix and mel kernels, `-T -d` writes
+    the model and its lite gate, the cascade captures its step once and
+    launches the mel kernel once per chunk. -> the kernels' launches."""
+    import json
+
+    import torch
+    from nanowakeword_tpu_torch.interpreter.nanointerpreter import _FusedStep
+    from nanowakeword_tpu_torch.ops import mel_cuda, mix_cuda
+
+    t_phase = time.perf_counter()
+    launches = {"mel": 0, "mix": 0}
+
+    # (a) the lowerings, served
+    mel_cuda.reset_launches()
+    for class_name, what, serve in LOWERINGS:
+        custom_onnx(cuda, str(work), LOWERINGS_SOURCE, class_name, {}, what,
+                    serve)
+    launches["mel"] += mel_cuda.launches
+    log(f"[programs] custom modules served: mel kernel launches "
+        f"{mel_cuda.launches}")
+
+    # (b) the notebook, its code cells in order
+    with open(os.path.join(ROOT, NOTEBOOK)) as f:
+        cells = ["".join(c["source"]) for c in json.load(f)["cells"]
+                 if c["cell_type"] == "code"]
+    folder = work / "notebook"
+    folder.mkdir()
+    namespace = {"__name__": "__main__"}
+    cwd, path = os.getcwd(), list(sys.path)
+    counts = []
+    os.chdir(folder)
+    try:
+        for k, source in enumerate(cells):
+            mel_cuda.reset_launches()
+            mix_cuda.reset_launches()
+            captured = mel_cuda.captured
+            t0 = time.perf_counter()
+            exec(compile(source, f"{NOTEBOOK}, code cell {k}", "exec"),
+                 namespace)
+            torch.cuda.synchronize()
+            counts.append({"s": time.perf_counter() - t0,
+                           "mel": mel_cuda.launches,
+                           "mix": mix_cuda.launches,
+                           "captures": mel_cuda.captured - captured})
+            launches["mel"] += mel_cuda.launches
+            launches["mix"] += mix_cuda.launches
+            log(f"[notebook] code cell {k}: {counts[-1]['s']:.3f} s, mel "
+                f"kernel {mel_cuda.launches}, mix kernel "
+                f"{mix_cuda.launches}, graph captures "
+                f"{counts[-1]['captures']}")
+    finally:
+        os.chdir(cwd)
+        sys.path[:] = path
+    train = next(c for c, src in zip(counts, cells) if "train(" in src)
+    check(train["mix"] > 0 and train["mel"] > 0,
+          f"the notebook's -t launched mix {train['mix']}, mel "
+          f"{train['mel']}")
+    model_dir = folder / "trained_models" / "my_first_model" / "model"
+    for name in ("my_first_model.nww", "my_first_model_lite.nww"):
+        check((model_dir / name).is_file(), f"the notebook wrote no {name}")
+    served = next(c for c, src in zip(counts, cells)
+                  if "NanoInterpreter" in src)
+    interp = namespace["interpreter"]
+    chunks = (len(namespace["clip"]) // 1280
+              + len(namespace["neg"]) // 1280)
+    check(interp.gate_name == "my_first_model_lite",
+          f"the notebook's cascade has no gate: {interp!r}")
+    check(served["captures"] == 1,
+          f"the notebook's interpreter captured {served['captures']} times")
+    check(served["mel"] == chunks + _FusedStep.WARMUP_STEPS,
+          f"the notebook's interpreter: {served['mel']} mel launches for "
+          f"{chunks} chunks")
+    total = time.perf_counter() - t_phase
+    log(f"[notebook] {NOTEBOOK} on {card}: steps 2000 (the notebook's, not "
+        f"cut), -t -T -d {train['s']:.3f} s (host clock); the cascade "
+        f"streamed {chunks} chunks with one capture and {served['mel']} "
+        f"mel launches ({_FusedStep.WARMUP_STEPS} warm-up steps); max "
+        f"negative score {max(namespace['scores'])}")
+    log(f"[launches] phase 23: mel kernel {launches['mel']}, mix kernel "
+        f"{launches['mix']}")
+    log(f"[time] phase 23: {total:.3f} s (host clock)")
+    return launches
 
 
 if __name__ == "__main__":

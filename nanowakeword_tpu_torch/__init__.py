@@ -9,8 +9,16 @@ server (`interpreter/remote_verifier.py`, `cli.py`); and the training path
 every part is tested against; this package never imports it.
 """
 
+from pathlib import Path as _Path
+
 from nanowakeword_tpu_torch.data.features import AudioFeatures
 from nanowakeword_tpu_torch.interpreter.nanointerpreter import (
     DetectionResult, NanoInterpreter)
+from nanowakeword_tpu_torch.interpreter.vad import VAD
 
-__all__ = ["AudioFeatures", "DetectionResult", "NanoInterpreter"]
+__version__ = "0.6.0"      # the JAX package's version
+
+__all__ = ["NanoInterpreter", "DetectionResult", "VAD", "AudioFeatures"]
+
+# the package's own directory, as the JAX package's PROJECT_ROOT is its own
+PROJECT_ROOT = _Path(__file__).resolve().parent

@@ -5,7 +5,9 @@ rates, `dropout_prob`, CLR cycle sizes, `background_paths_duplication_rate`,
 and batch sizes from dataset statistics (H_pos/H_neg/H_noise/A_noise/N_rir)
 and host/accelerator resources. In the pipeline it is called with no
 stats, so the hardware-dependent keys dominate. Device batch sizes come
-from the CUDA devices torch sees (count and memory).
+from the CUDA devices torch sees (count and memory); a process that sees
+none counts its CPU as one small device, as `jax.devices()` does for the
+JAX package, so both packages write the same config on the same machine.
 """
 
 from __future__ import annotations
@@ -31,10 +33,11 @@ LARGE_DEVICE_GIB = 40.0
 
 
 def _device_info():
-    """(number of CUDA devices, memory of device 0 in GiB)."""
+    """(number of CUDA devices, memory of device 0 in GiB); without one,
+    the CPU as one device of unknown memory."""
     import torch
     if not torch.cuda.is_available():
-        return 0, 0.0
+        return 1, 0.0
     props = torch.cuda.get_device_properties(0)
     return torch.cuda.device_count(), props.total_memory / 2 ** 30
 
@@ -125,15 +128,12 @@ class ConfigGenerator:
 
         # device feature-extraction batch size, from the CUDA devices
         n_dev, mem_gib = _device_info()
-        if n_dev > 0 and mem_gib >= LARGE_DEVICE_GIB:
+        if mem_gib >= LARGE_DEVICE_GIB:
             self.config["feature_batch_size"] = 1024 * n_dev
             self.config["tts_batch_size"] = 256
-        elif n_dev > 0:
+        else:
             self.config["feature_batch_size"] = 256 * n_dev
             self.config["tts_batch_size"] = 64
-        else:  # pragma: no cover
-            self.config["feature_batch_size"] = 128
-            self.config["tts_batch_size"] = 32
 
         return self.config
 

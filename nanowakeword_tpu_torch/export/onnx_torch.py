@@ -56,21 +56,32 @@ def _conv(x, w, b, pads, strides, dilations, group):
                     groups=int(group))
 
 
-def _maxpool(x, kernel, strides):
-    """ONNX MaxPool without padding (VALID), over 1 or 2 spatial dims."""
-    if x.ndim == 3:
-        return F.max_pool1d(x, int(kernel[0]), int(strides[0]))
-    return F.max_pool2d(x, tuple(int(k) for k in kernel),
-                        tuple(int(s) for s in strides))
-
-
-def _avgpool(x, kernel, strides):
-    """ONNX AveragePool without padding (VALID), over 1 or 2 spatial
-    dims."""
-    if x.ndim == 3:
-        return F.avg_pool1d(x, int(kernel[0]), int(strides[0]))
-    return F.avg_pool2d(x, tuple(int(k) for k in kernel),
-                        tuple(int(s) for s in strides))
+def _pool(op: str):
+    """ONNX MaxPool / AveragePool over 1 or 2 spatial dims, with `pads`
+    (-inf for MaxPool; for AveragePool zeros, left out of each window's
+    divisor unless `count_include_pad`, as onnx_eval's `_pool`)."""
+    def run(x, a):
+        x = x[0]
+        rank = x.ndim - 2
+        kernel = [int(k) for k in a["kernel_shape"]]
+        strides = [int(s) for s in a.get("strides", kernel)]
+        pads = [int(p) for p in a.get("pads", [0] * 2 * rank)]
+        pool = {("MaxPool", 1): F.max_pool1d, ("MaxPool", 2): F.max_pool2d,
+                ("AveragePool", 1): F.avg_pool1d,
+                ("AveragePool", 2): F.avg_pool2d}[op, rank]
+        counts = None
+        if any(pads):
+            width = []
+            for i in reversed(range(rank)):      # F.pad: last axis first
+                width += [pads[i], pads[rank + i]]
+            if op == "AveragePool" and not a.get("count_include_pad", 0):
+                counts = pool(F.pad(torch.ones_like(x[:1, :1]), width),
+                              kernel, strides)
+            x = F.pad(x, width, value=float("-inf") if op == "MaxPool"
+                      else 0.0)
+        y = pool(x, kernel, strides)
+        return y if counts is None else y / counts
+    return run
 
 
 def _gru_dir(X, W, R, B, linear_before_reset, h0=None):
@@ -254,11 +265,8 @@ _OPS = {
     "Transpose": lambda x, a: x[0].permute(*a["perm"]),
     "LayerNormalization": _layer_norm,
     "Conv": _conv_node,
-    "MaxPool": lambda x, a: _maxpool(x[0], a["kernel_shape"],
-                                     a.get("strides", a["kernel_shape"])),
-    "AveragePool": lambda x, a: _avgpool(x[0], a["kernel_shape"],
-                                         a.get("strides",
-                                               a["kernel_shape"])),
+    "MaxPool": _pool("MaxPool"),
+    "AveragePool": _pool("AveragePool"),
     "BatchNormalization": _batch_norm,
     "ReduceMean": _reduce(torch.mean),
     "ReduceMax": _reduce(torch.amax),

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from nanowakeword_tpu_torch import NanoInterpreter
 from nanowakeword_tpu_torch.export import onnx_eval
@@ -182,3 +183,144 @@ def test_custom_onnx_is_written_and_served(tmp_path):
         np.int16)
     scores = [r.score for r in interp.predict_clip(clip)]
     assert len(scores) == 25 and np.isfinite(scores).all()
+
+
+# -- the torch counterparts of the jaxpr exporter's rules ---------------------
+
+T, FEAT = 10, 12
+
+
+class Body(nn.Module):
+    """x -> body(x) [B, T', F'] -> a score from the mean over time."""
+
+    def __init__(self, body):
+        super().__init__()
+        self.body = body
+        self.mha = nn.MultiheadAttention(FEAT, 2, batch_first=True)
+        self.norm = nn.LayerNorm(FEAT)
+        self.pool = nn.AvgPool2d(3, 1, 1, count_include_pad=False)
+
+    def forward(self, x):
+        h = self.body(self, x).mean(dim=1)
+        return (h * h).sum(dim=-1, keepdim=True) * 0.3
+
+
+def _split_halves(m, x):
+    a, b = x.chunk(2, dim=-1)
+    c, d = torch.split(x, [5, 7], dim=-1)
+    return torch.cat([b, a * 2, d, c], -1)
+
+
+LOWERED = {
+    "torch.softmax": lambda m, x: torch.softmax(x, -1) * x,
+    "sdpa": lambda m, x: F.scaled_dot_product_attention(x, x, x * 2),
+    "multihead_attention": lambda m, x: m.mha(x, x, x)[0],
+    "multihead_attention_no_weights": lambda m, x: m.mha(
+        x, x * 0.5, x, need_weights=False)[0] + x,
+    "einsum": lambda m, x: torch.einsum("btf,bsf->bts", x, x) @ x,
+    "chunk_split": _split_halves,
+    "chunk_cat": lambda m, x: torch.cat(x.chunk(3, -1), -1) * 2,
+    "unbind_stack": lambda m, x: torch.stack(x.unbind(1), 1) + torch.stack(
+        torch.unbind(x, -1), -1),
+    "stack_leading": lambda m, x: torch.stack([x, x * 2], 0).sum(0),
+    "avg_pool1d": lambda m, x: F.avg_pool1d(x.transpose(1, 2), 2).transpose(
+        1, 2),
+    "avg_pool1d_padded": lambda m, x: F.avg_pool1d(
+        x.transpose(1, 2), 3, 2, 1).transpose(1, 2),
+    "avg_pool1d_padded_excluded": lambda m, x: F.avg_pool1d(
+        x.transpose(1, 2), 3, 2, 1, count_include_pad=False).transpose(1, 2),
+    "max_pool1d_padded": lambda m, x: F.max_pool1d(
+        x.transpose(1, 2), 3, 2, padding=1).transpose(1, 2),
+    "max_pool2d": lambda m, x: F.max_pool2d(x[:, None], 2)[:, 0],
+    "avg_pool2d_module_padded": lambda m, x: m.pool(x[:, None])[:, 0],
+    "argmax_one_hot": lambda m, x: x * (0.5 + F.one_hot(
+        x.argmax(dim=-1), x.shape[-1])),
+    "argmax_keepdim": lambda m, x: x + torch.argmax(x, 1, keepdim=True),
+    "compares": lambda m, x: (x * (x > 0) + (x <= 0.5) * 2
+                              + torch.ge(x, 0.1) - x.lt(0).float()
+                              + (x == 0) + torch.eq(x, x)),
+    "where": lambda m, x: torch.where(x > 0, x, 0.5 * x) + x.where(
+        x < 1, x * 0),
+    "clamp": lambda m, x: (x.clamp(-0.5, 0.5) + torch.clamp(x, min=0)
+                           + torch.clip(x, max=0.2)),
+    "rsqrt_var_square": lambda m, x: (
+        (x - x.mean(-1, keepdim=True))
+        * torch.rsqrt(x.var(-1, keepdim=True, unbiased=False) + 1e-5)
+        + x.square() + x.var(1, keepdim=True) + torch.var(x, 2, True, True)),
+    "layer_norm": lambda m, x: F.layer_norm(x, (FEAT,)) + F.layer_norm(
+        x, (FEAT,), m.norm.weight, m.norm.bias, 1e-6),
+    "max_min": lambda m, x: (x.max(dim=1, keepdim=True).values
+                             + torch.min(x, 1)[0][:, None]
+                             + torch.max(x, x * 2)),
+    "flip": lambda m, x: x.flip(1) + torch.flip(x, [1, 2]),
+    "list_index": lambda m, x: x[:, [0, x.shape[1] - 1, x.shape[1] // 2], :],
+    "list_index_negative": lambda m, x: x[..., [-1, 0, 3]],
+    "traced_slice": lambda m, x: x[:, : x.shape[1] // 2],
+}
+# ops that the numpy evaluator runs and the torch ONNX runtime does not (as
+# the JAX package's onnx_jax.py does not): such graphs are not served
+NOT_SERVED = {"argmax_one_hot": "ArgMax", "argmax_keepdim": "ArgMax",
+              "flip": "Slice", "list_index": "Gather",
+              "list_index_negative": "Gather"}
+
+
+@pytest.mark.parametrize("name", sorted(LOWERED))
+def test_op_lowers_at_a_dynamic_batch(name):
+    module = Body(LOWERED[name]).eval()
+    data = build_onnx_from_module(module, (T, FEAT), 1)
+    assert _dims(data) == ("batch_size", ("batch_size", 1))
+    for batch in (2, 7):
+        x = _features(batch, (batch, T, FEAT))
+        want = _module_scores(module, x)
+        np.testing.assert_allclose(onnx_eval.run(data, {"features": x})[
+            "score"], want, rtol=ONNX_TOL, atol=ONNX_TOL)
+        runtime = OnnxTorchModel(data, device="cpu")
+        if name in NOT_SERVED:
+            with pytest.raises(NotImplementedError, match=NOT_SERVED[name]):
+                runtime(x)
+        else:
+            np.testing.assert_allclose(runtime(x), want, rtol=ONNX_TOL,
+                                       atol=ONNX_TOL)
+
+
+UNSUPPORTED = {
+    "causal sdpa": (lambda m, x: F.scaled_dot_product_attention(
+        x, x, x, is_causal=True), "is_causal"),
+    "masked sdpa": (lambda m, x: F.scaled_dot_product_attention(
+        x, x, x, attn_mask=x @ x.transpose(1, 2) > 0), "mask"),
+    "attention weights read": (lambda m, x: m.mha(x, x, x)[1] @ x,
+                               "attention weights"),
+    "max indices read": (lambda m, x: x + x.max(dim=1).indices[:, None, :],
+                         "indices"),
+    "one_hot without num_classes": (lambda m, x: x * F.one_hot(
+        x.argmax(dim=-1))[..., :1], "num_classes"),
+    "cumsum": (lambda m, x: torch.cumsum(x, 1), "cumsum"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(UNSUPPORTED))
+def test_unsupported_form_is_named(name):
+    body, what = UNSUPPORTED[name]
+    with pytest.raises(ExportUnsupported, match=what):
+        build_onnx_from_module(Body(body), (T, FEAT), 1)
+
+
+def test_multihead_attention_needs_batch_first():
+    class SeqFirst(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.mha = nn.MultiheadAttention(FEAT, 2)
+
+        def forward(self, x):
+            return self.mha(x, x, x)[0].mean(dim=(1, 2))[:, None]
+
+    with pytest.raises(ExportUnsupported, match="batch_first"):
+        build_onnx_from_module(SeqFirst(), (T, FEAT), 1)
+
+
+def test_argmax_over_the_batch_falls_back_to_batch_one(capsys):
+    module = Body(lambda m, x: x + x.argmax(dim=0)[None]).eval()
+    data = build_onnx_from_module(module, (T, FEAT), 1)
+    out = " ".join(capsys.readouterr().out.split())
+    assert "FIXED batch_size=1" in out and "argmax along the batch" in out
+    assert _dims(data) == (1, (1, 1))

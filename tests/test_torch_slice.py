@@ -157,6 +157,13 @@ def test_chunker_matches_jax():
 
 def test_import_loads_no_jax():
     code = ("import sys, nanowakeword_tpu_torch\n"
+            "from nanowakeword_tpu_torch import (VAD, NanoInterpreter, "
+            "AudioFeatures, DetectionResult, __version__, PROJECT_ROOT)\n"
+            "assert __version__ == '0.6.0'\n"
+            "assert PROJECT_ROOT == __import__('pathlib').Path("
+            "nanowakeword_tpu_torch.__file__).resolve().parent\n"
+            "assert nanowakeword_tpu_torch.__all__ == ['NanoInterpreter', "
+            "'DetectionResult', 'VAD', 'AudioFeatures']\n"
             "from nanowakeword_tpu_torch import convert\n"
             "from nanowakeword_tpu_torch.export import artifact, fx_onnx\n"
             "from nanowakeword_tpu_torch.train import pretrain_encoder\n"
