@@ -50,12 +50,16 @@ softmax over einsum, functional pooling with a layer norm by var and
 rsqrt, where / compare gating, a list index with argmax gating) exported at
 a dynamic batch and held to their modules, the first three served on the
 card behind the mel kernel, and the port's quickstart notebook run cell by
-cell on the card. It times both kernels against their
-plain versions, batch scoring, streaming latency (eager, replayed and
-`.onnx`), the server's requests per second, the transform stage, training
-steps of both loops in float32 and bf16, each family's forward (module and
-`.onnx`), distillation steps, clip generation, end-to-end steps,
-pretraining steps and the campaign's evaluation rate.
+cell on the card. Last, the port's benchmark program
+(nanowakeword_tpu_torch/bench.py) at the sizes of the repository's
+bench.py: its headline and its five `--all` configurations, through both
+kernels, with their two result lines printed. It times both kernels
+against their plain versions, batch scoring, streaming latency (eager,
+replayed and `.onnx`), the server's requests per second, the transform
+stage, training steps of both loops in float32 and bf16, each family's
+forward (module and `.onnx`), distillation steps, clip generation,
+end-to-end steps, pretraining steps, the campaign's evaluation rate and
+the benchmark's numbers.
 
 Phases print progress lines. Every check raises on failure, so any failed
 phase exits non-zero. The line before the last is a JSON object with the
@@ -399,6 +403,8 @@ def main() -> int:
     # the quickstart notebook on the card ---------------------------------------
     with tempfile.TemporaryDirectory(prefix="nww_smoke_") as work:
         programs = last_programs_phase(cuda, card, Path(work))
+    # -- 24. the port's benchmark program at bench.py's sizes -----------------
+    benchmark = bench_phase(cuda, card)
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "nanowakeword_tpu"))
@@ -411,7 +417,7 @@ def main() -> int:
         "replaces": "nanowakeword_tpu/ops/mel_pallas.py:269",
         "launches": (main_launches + serving_launches + e2e["mel"]
                      + onnx_launches + pretrain["mel"] + parallel_launches
-                     + quality["mel"] + programs["mel"]),
+                     + quality["mel"] + programs["mel"] + benchmark["mel"]),
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -424,7 +430,7 @@ def main() -> int:
         "source": "nanowakeword_tpu_torch/csrc/mix_gain.cu",
         "replaces": "nanowakeword_tpu/ops/mix_pallas.py:93",
         "launches": (train["mix_launches"] + e2e["mix"] + pretrain["mix"]
-                     + quality["mix"] + programs["mix"]),
+                     + quality["mix"] + programs["mix"] + benchmark["mix"]),
         "max_abs_err": mix["max_err"],
         "ms": mix["ms"],
         "plain_ms": mix["plain_ms"],
@@ -3273,6 +3279,118 @@ def last_programs_phase(cuda, card, work) -> dict:
         f"{launches['mix']}")
     log(f"[time] phase 23: {total:.3f} s (host clock)")
     return launches
+
+
+
+def chain_kernels_match_plain(cuda) -> None:
+    """Both kernels against their plain versions at the inputs of
+    `bench_all`'s augmented training chain: its first augmentation (batch
+    2048 of int16 [16000] foreground, a background on every clip, the
+    first draw of the chain's seeded generator), the arguments that
+    `augment_batch` passes to the mix kernel recorded as it passes them
+    (bound as phase 7's), then the mel kernel on the int16 result in bf16,
+    equal to the plain version bit for bit."""
+    import numpy as np
+    import torch
+    from nanowakeword_tpu_torch import bench
+    from nanowakeword_tpu_torch.ops import augment, mel_cuda, mix_cuda
+
+    _, audio, _, bg = bench._all_inputs(np.random.default_rng(0),
+                                        bench.ALL_BATCH, cuda)
+    recorded = []
+
+    def record(*args):
+        recorded.append(args)
+        return mix_cuda.mix_gain_fused(*args)
+
+    augment.mix_gain_fused = record
+    try:
+        aug = bench._augment(torch.Generator().manual_seed(0),
+                             *bench._augment_inputs(audio, bg))
+    finally:
+        augment.mix_gain_fused = mix_cuda.mix_gain_fused
+    check(len(recorded) == 1, f"augment_batch called mix {len(recorded)} "
+          "times")
+    args = recorded[0]
+    fg, has_bg = args[0], args[4]
+    check(fg.dtype == torch.int16 and tuple(fg.shape) == (bench.ALL_BATCH,
+                                                          16000)
+          and bool(has_bg.all()), f"mix inputs {fg.dtype} {tuple(fg.shape)}")
+    out = mix_cuda.mix_gain_cuda(*args)
+    ref = mix_cuda.mix_gain_plain(*args)
+    err = (out - ref).abs().max().item()
+    tol = MIX_ULPS * max(ref.abs().max().item(), 1.0)
+    log(f"[bench] training chain's mix at {list(fg.shape)} int16, every "
+        f"clip with a background: max|kernel - plain| = {err:.3g} (bound "
+        f"{tol:.3g})")
+    check(err <= tol, f"chain mix kernel vs plain {err} > {tol}")
+    check(aug.dtype == torch.int16, f"augment_batch gave {aug.dtype}")
+    mel = mel_cuda.mel_frontend_fused(aug, out_dtype=torch.bfloat16)
+    mel_ref = mel_cuda.mel_frontend_plain(aug, torch.bfloat16)
+    check(mel.dtype == torch.bfloat16 and torch.equal(mel, mel_ref),
+          f"chain mel kernel vs plain: max diff "
+          f"{(mel.float() - mel_ref.float()).abs().max().item()}")
+    log(f"[bench] training chain's mel on the augmented {list(aug.shape)} "
+        f"int16, bf16 out: equal to plain bit for bit")
+
+
+def bench_phase(cuda, card) -> dict:
+    """Phase 24: the port's benchmark program
+    (nanowakeword_tpu_torch/bench.py) at bench.py's full sizes. The
+    tripwire (the mel kernel equal to its plain version on int16 audio,
+    within 2e-3 on float32), both kernels against their plain versions at
+    the training chain's inputs, then the headline (int16 [4096, 16000] on the
+    card, 256 replays of the captured bf16 forward, best of 3; 200 fetched
+    streaming steps; K = 512 chained steps, best of 5) and `bench_all` at
+    batch 2048, each line printed. The benchmark raises unless every
+    captured step launches the mel kernel once per replay and the
+    augmented training chains launch both kernels. -> the kernels'
+    launches on the two runs (the comparisons with plain not counted)."""
+    import numpy as np
+    import torch
+    from nanowakeword_tpu_torch import bench
+    from nanowakeword_tpu_torch.ops import mel_cuda, mix_cuda
+
+    t_phase = time.perf_counter()
+    mel_err = bench.check_mel_kernel_exact(device=cuda)
+    check(mel_err <= KERNEL_TOL, f"bench tripwire {mel_err}")
+    chain_kernels_match_plain(cuda)
+    launches = {}
+    lines = {}
+    for what, run in (("headline", lambda: bench.headline(mel_err, cuda)),
+                      ("bench_all", lambda: bench.bench_all(device=cuda))):
+        mel_cuda.reset_launches()
+        mix_cuda.reset_launches()
+        t0 = time.perf_counter()
+        result = run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches[what] = {"mel": mel_cuda.launches, "mix": mix_cuda.launches}
+        numbers = [v for v in result.values() if isinstance(v, float)]
+        check(all(np.isfinite(v) and v >= 0 for v in numbers),
+              f"bench {what}: {result}")
+        lines[what] = json.dumps(result if what == "headline"
+                                 else {"bench_all": result, "card": card})
+        log(f"[bench] {what}: {seconds:.3f} s (host clock), mel kernel "
+            f"{mel_cuda.launches}, mix kernel {mix_cuda.launches}")
+    # one mel launch per replay of each captured step (bench raises
+    # otherwise): 4 chains of 256 forwards, 204 streaming steps, 6 chains
+    # of 512 frames, 3 warm-up steps before each of the 3 captures
+    replays = 4 * 256 + 204 + 6 * 512
+    check(launches["headline"]["mel"] == replays + 3 * 3,
+          f"bench headline: {launches['headline']['mel']} mel launches for "
+          f"{replays} replays")
+    check(launches["bench_all"]["mix"] >= 4 * bench.TRAIN_STEPS
+          and launches["bench_all"]["mel"] > 4 * bench.TRAIN_STEPS,
+          f"bench_all: {launches['bench_all']}")
+    for line in lines.values():
+        print(line, flush=True)
+    total = {k: sum(v[k] for v in launches.values()) for k in ("mel", "mix")}
+    log(f"[launches] phase 24: mel kernel {total['mel']}, mix kernel "
+        f"{total['mix']}")
+    log(f"[time] phase 24 on {card}: {time.perf_counter() - t_phase:.3f} s "
+        f"(host clock)")
+    return total
 
 
 if __name__ == "__main__":

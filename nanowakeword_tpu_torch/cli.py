@@ -86,7 +86,8 @@ def _build_parser() -> argparse.ArgumentParser:
             "  nanowakeword-torch -c config.yaml -t -T\n"
             "  nanowakeword-torch -c config.yaml\n"
             "  nanowakeword-torch --model my_model.nww --pipeline full\n"
-            "  nanowakeword-torch --info my_model.nww\n"))
+            "  nanowakeword-torch --info my_model.nww\n"
+            "  nanowakeword-torch --bench\n"))
 
     train_group = parser.add_argument_group("Training pipeline (-c required)")
     train_group.add_argument("-c", "--config", metavar="PATH", default=None,
@@ -159,6 +160,9 @@ def _build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--info", metavar="MODEL", default=None,
                         help="Show metadata for a .nww or .onnx model file "
                              "and exit.")
+    parser.add_argument("--bench", action="store_true",
+                        help="Run the throughput benchmark's headline on "
+                             "--device and exit.")
     return parser
 
 
@@ -302,6 +306,10 @@ def main(argv=None):
 
     if args.info:
         _run_info(args.info)
+        return
+    if args.bench:
+        from nanowakeword_tpu_torch import bench
+        bench.main(["--device", args.device])
         return
     if args.model:
         _run_server(args)

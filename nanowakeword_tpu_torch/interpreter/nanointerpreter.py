@@ -44,6 +44,7 @@ import torch
 from nanowakeword_tpu_torch.data.features import CHUNK, AudioFeatures
 from nanowakeword_tpu_torch.export.artifact import EXTENSION, load_nww
 from nanowakeword_tpu_torch.ops import mel_cuda
+from nanowakeword_tpu_torch.utils.cuda_graph import capture_graph
 
 try:
     import noisereduce as nr
@@ -300,23 +301,9 @@ class _FusedStep:
 
     def capture(self) -> None:
         """Warm up, capture `_step` into a graph, restore the state."""
-        device = self.pre.device
-        state = self._state_tensors()
-        saved = [t.clone() for t in state]
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            for _ in range(self.WARMUP_STEPS):
-                self._step()
-        torch.cuda.current_stream(device).wait_stream(side)
-        recorded = mel_cuda.captured
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self._step()
-        self.mel_launches_per_replay = mel_cuda.captured - recorded
-        for dst, src in zip(state, saved):
-            dst.copy_(src)
-        self.graph = graph
+        self.graph, self.mel_launches_per_replay = capture_graph(
+            self._step, self.pre.device, self._state_tensors(),
+            self.WARMUP_STEPS)
 
     def run(self, chunk: np.ndarray) -> dict:
         """One [1280] float32 chunk -> {model: probability}."""

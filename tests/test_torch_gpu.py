@@ -6,7 +6,8 @@ launching the mix kernel, end-to-end training's module and step, whose
 forward launches the mel kernel, `.onnx` graphs on the card: the torch
 runtime against the CPU, and an `.onnx` cascade behind the mel kernel, and
 the quality campaign's evaluator: the card against the CPU, one graph
-capture per interpreter across files.
+capture per interpreter across files, and the benchmark's forward: the
+card against the CPU, one mel launch per replay of its captured graph.
 
 Every test here is `gpu`-marked and skips without a CUDA device. On a
 machine with one: `python -m pytest -m gpu tests/test_torch_gpu.py -q`.
@@ -745,3 +746,54 @@ def test_one_capture_per_interpreter(cuda, tmp_path):
     assert interp._fused_step.graph is graph
     assert mel_cuda.captured == captured + 1
     assert mel_cuda.launches - before == chunks
+
+
+# the port's benchmark (nanowakeword_tpu_torch/bench.py): build_forward's
+# bf16 scores, card vs CPU on the same weights, within tests/
+# test_torch_bench.py's bound (two bf16 steps of a score near 0.5)
+BENCH_BF16_TOL = 2.0 ** -7
+
+
+def _bench_audio(batch):
+    from nanowakeword_tpu_torch.export.frontend import seeded_audio
+    return torch.from_numpy(np.round(seeded_audio(batch, 16000, seed=16))
+                            .astype(np.int16))
+
+
+def test_bench_forward_card_matches_cpu(cuda):
+    """build_forward on int16 [64, 16000] tones: the card's bf16 scores
+    against the CPU's (the same seeded weights on both)."""
+    from nanowakeword_tpu_torch import bench
+    x = _bench_audio(64)
+    scores = {}
+    for device in (cuda, torch.device("cpu")):
+        forward, model, _ = bench.build_forward(device)
+        assert all(p.dtype == torch.bfloat16
+                   for p in model.module.parameters())
+        out = forward(x.to(device))
+        assert out.dtype == torch.bfloat16 and out.shape == (64,)
+        scores[device.type] = out.float().cpu().numpy()
+    assert np.isfinite(scores["cuda"]).all()
+    assert np.abs(scores["cuda"] - scores["cpu"]).max() <= BENCH_BF16_TOL
+
+
+def test_bench_captured_forward_launches_mel_once_per_replay(cuda):
+    """One forward captured as the headline captures it: one mel launch
+    recorded, one counted per replay, and the replays compute the eager
+    forward's sum."""
+    from nanowakeword_tpu_torch import bench
+    forward, _, _ = bench.build_forward(cuda)
+    audio = _bench_audio(64).to(cuda)
+    acc = torch.zeros((), device=cuda)
+    captured = mel_cuda.captured
+    run = bench._Captured(lambda: acc.add_(forward(audio).float().sum()),
+                          cuda, state=(acc,))
+    assert run.graph is not None and run.mel_launches == 1
+    assert mel_cuda.captured == captured + 1
+    assert float(acc) == 0.0
+    before = mel_cuda.launches
+    for _ in range(5):
+        run()
+    assert mel_cuda.launches - before == 5
+    eager = float(forward(audio).float().sum())
+    np.testing.assert_allclose(float(acc), 5 * eager, rtol=1e-6)
