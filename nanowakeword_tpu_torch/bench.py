@@ -52,7 +52,7 @@ from nanowakeword_tpu_torch.ops.augment import (AugmentDraws, AugmentParams,
 from nanowakeword_tpu_torch.ops.mel_cuda import mel_frontend_fused
 from nanowakeword_tpu_torch.train.optim import Optimizer
 from nanowakeword_tpu_torch.train.step import make_train_step
-from nanowakeword_tpu_torch.utils.cuda_graph import capture_graph
+from nanowakeword_tpu_torch.utils.cuda_graph import capture_graph, replay
 
 METRIC = "1sec_clips_per_sec_per_chip_mel+embed+crnn_forward"
 WINDOW = 16         # feature frames the classifiers see
@@ -113,8 +113,7 @@ class _Captured:
         if self.graph is None:
             self.step()
             return
-        self.graph.replay()
-        mel_cuda.count_replayed(self.mel_launches)
+        replay(self.graph, self.mel_launches)
 
 
 def _best_chain(run, acc: torch.Tensor, iters: int, reps: int) -> float:

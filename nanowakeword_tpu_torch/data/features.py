@@ -40,8 +40,10 @@ from nanowakeword_tpu_torch.models.embedding import (EMB_STRIDE, EMB_WINDOW,
                                                      EMBEDDING_DIM,
                                                      encoder_from_state_dict)
 from nanowakeword_tpu_torch.ops import mel as melops
-from nanowakeword_tpu_torch.ops.mel_cuda import mel_frontend_fused
+from nanowakeword_tpu_torch.ops.mel_cuda import (mel_frontend_cuda,
+                                                 mel_frontend_fused)
 from nanowakeword_tpu_torch.runtime import Chunker
+from nanowakeword_tpu_torch.utils import tracing
 
 MEL_BUFFER_FRAMES = 970      # ~10 s of mel history
 FEATURE_BUFFER_FRAMES = 120  # ~10 s of embeddings
@@ -133,13 +135,22 @@ class AudioFeatures:
     # -- pure compute ---------------------------------------------------------
 
     def _mel(self, audio: torch.Tensor) -> torch.Tensor:
-        if self.compute_dtype == torch.bfloat16:
+        if self.compute_dtype != torch.bfloat16:
+            with tracing.span("nww.features.mel", device=audio.device):
+                return melops.mel_frontend(audio,
+                                           compute_dtype=self.compute_dtype)
+        if audio.device.type == "cuda":
+            # the span holds the kernel's launch alone, so that its device
+            # time starts at the launch
+            return mel_frontend_cuda(audio, span="nww.features.mel")
+        with tracing.span("nww.features.mel"):
             return mel_frontend_fused(audio)
-        return melops.mel_frontend(audio, compute_dtype=self.compute_dtype)
 
     def _embed_impl(self, audio: torch.Tensor) -> torch.Tensor:
         """[N, samples] audio -> [N, frames, 96]; one pass, no windows."""
-        return self.encoder(self._mel(audio)[:, EMB_OFFSET:])
+        mel = self._mel(audio)[:, EMB_OFFSET:]
+        with tracing.span("nww.features.encoder", device=audio.device):
+            return self.encoder(mel)
 
     def _stream_step_impl(self, state: StreamState,
                           chunk: torch.Tensor) -> StreamState:
@@ -195,13 +206,19 @@ class AudioFeatures:
         # kernel converts in registers (int16 -> f32 is exact)
         in_dtype = torch.int16 if x.dtype == torch.int16 else torch.float32
         outs = []
-        for i in range(0, x.shape[0], batch_size):
-            batch = x[i:i + batch_size]
-            if mesh is None:
-                audio = batch.to(self.device, in_dtype).contiguous()
-                outs.append(self._embed_impl(audio).cpu().numpy())
-            else:
-                outs.append(self._embed_sharded(batch, in_dtype, mesh))
+        with tracing.span("nww.embed_clips"):
+            for i in range(0, x.shape[0], batch_size):
+                batch = x[i:i + batch_size]
+                if mesh is None:
+                    with tracing.span("nww.features.upload",
+                                      device=self.device):
+                        audio = batch.to(self.device, in_dtype).contiguous()
+                    emb = self._embed_impl(audio)
+                    with tracing.span("nww.features.download",
+                                      device=self.device):
+                        outs.append(emb.cpu().numpy())
+                else:
+                    outs.append(self._embed_sharded(batch, in_dtype, mesh))
         return np.concatenate(outs, axis=0)
 
     def _default_mesh(self):
@@ -221,11 +238,15 @@ class AudioFeatures:
                                 devices):
             if part.shape[0] == 0:
                 continue
-            audio = part.to(device, in_dtype).contiguous()
+            with tracing.span("nww.features.upload", device=device):
+                audio = part.to(device, in_dtype).contiguous()
             encoder = self._encoder_on(device)
             mel = self._mel(audio)[:, EMB_OFFSET:]
-            outs.append(encoder(mel))
-        return collectives.gather(outs, mesh.primary).cpu().numpy()
+            with tracing.span("nww.features.encoder", device=device):
+                outs.append(encoder(mel))
+        gathered = collectives.gather(outs, mesh.primary)
+        with tracing.span("nww.features.download", device=mesh.primary):
+            return gathered.cpu().numpy()
 
     def _encoder_on(self, device: torch.device) -> torch.nn.Module:
         """The encoder's replica on `device` (the encoder itself on its

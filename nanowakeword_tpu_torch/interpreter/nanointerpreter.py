@@ -43,8 +43,9 @@ import torch
 
 from nanowakeword_tpu_torch.data.features import CHUNK, AudioFeatures
 from nanowakeword_tpu_torch.export.artifact import EXTENSION, load_nww
-from nanowakeword_tpu_torch.ops import mel_cuda
-from nanowakeword_tpu_torch.utils.cuda_graph import capture_graph
+from nanowakeword_tpu_torch.utils import tracing
+from nanowakeword_tpu_torch.utils.cuda_graph import capture_graph, replay
+from nanowakeword_tpu_torch.utils.tracing import counters
 
 try:
     import noisereduce as nr
@@ -157,8 +158,18 @@ class _LocalSession:
     def run_batch(self, feats: np.ndarray) -> np.ndarray:
         """[B, T, F] -> [B] probabilities (stateless models; the server's
         dynamic batching path)."""
-        if self.mesh is None:
-            return self.scores(self._tensor(feats)).cpu().numpy()
+        with tracing.span("nww.run_batch"):
+            if self.mesh is None:
+                device = self.model.device
+                with tracing.span("nww.session.upload", device=device):
+                    x = self._tensor(feats)
+                with tracing.span("nww.session.forward", device=device):
+                    probs = self.scores(x)
+                with tracing.span("nww.session.download", device=device):
+                    return probs.cpu().numpy()
+            return self._run_sharded(feats)
+
+    def _run_sharded(self, feats: np.ndarray) -> np.ndarray:
         from nanowakeword_tpu_torch.parallel import collectives
         feats = np.asarray(feats, np.float32)
         n, n_data = feats.shape[0], len(self._replicas)
@@ -254,6 +265,12 @@ class _FusedStep:
     capture fails, `run` raises; there is no eager way back on the card.
     On a CPU device `_step` runs eagerly. A graph must not be replayed from
     two threads at once: an interpreter serves one stream.
+
+    While tracing is on (utils/tracing.py), the replay is the span
+    `nww.step.replay`: its host time is the graph's launch, and its device
+    time comes from timing events recorded on the stream around the launch,
+    so it also counts the launch's latency, during which the device waits
+    on the host.
     """
 
     WARMUP_STEPS = 3
@@ -308,23 +325,25 @@ class _FusedStep:
     def run(self, chunk: np.ndarray) -> dict:
         """One [1280] float32 chunk -> {model: probability}."""
         hidden = self.interp.hidden_states
-        for name, carry in self.carries.items():
-            if hidden[name] is None:        # after reset(): the zero state
-                for t in _tree_tensors(carry):
-                    t.zero_()
+        with tracing.span("nww.predict.upload"):
+            for name, carry in self.carries.items():
+                if hidden[name] is None:    # after reset(): the zero state
+                    for t in _tree_tensors(carry):
+                        t.zero_()
+            self.chunk.copy_(torch.from_numpy(chunk))
         if self.use_graph and self.graph is None:
             self.capture()
-        self.chunk.copy_(torch.from_numpy(chunk))
-        if self.use_graph:
-            self.graph.replay()
-            mel_cuda.count_replayed(self.mel_launches_per_replay)
-        else:
-            self._step()
+        with tracing.span("nww.step.replay", device=self.pre.device):
+            if self.use_graph:
+                replay(self.graph, self.mel_launches_per_replay)
+            else:
+                self._step()
+        with tracing.span("nww.predict.readback"):
+            scores = self.scores.cpu().numpy()
         self.pre._frames_seen += 1
         for name, carry in self.carries.items():
             hidden[name] = carry
-        return dict(zip(self.names,
-                        self.scores.cpu().numpy().astype(np.float64)))
+        return dict(zip(self.names, scores.astype(np.float64)))
 
 
 class NanoInterpreter:
@@ -367,6 +386,7 @@ class NanoInterpreter:
         self._listen_thread: Optional[threading.Thread] = None
         self._stop_event: Optional[threading.Event] = None
         self._fused_step: Optional[_FusedStep] = None
+        self._chunk_serial = 0      # chunks scored: the spans' request id
 
     def _register(self, model_key: str, session) -> None:
         self.models[model_key] = session
@@ -692,31 +712,46 @@ class NanoInterpreter:
         """predict() over the one-call step; same semantics as the general
         path, but every model scores on every chunk."""
         pre = self.preprocessor
-        chunks = pre._chunker.feed(np.asarray(x, np.float32).reshape(-1))
-        pre.accumulated_samples = pre._chunker.pending
+        with tracing.span("nww.predict.upload"):
+            chunks = pre._chunker.feed(np.asarray(x, np.float32).reshape(-1))
+            pre.accumulated_samples = pre._chunker.pending
         if chunks.shape[0] == 0:
             return self._result(self.post_processed_scores)
 
         raw = {}
         for chunk in chunks:
             raw = self._fused_step.run(chunk)
+        self._chunk_serial += chunks.shape[0]
+        counters["interpreter.chunks"] += chunks.shape[0]
 
-        frames_avail = min(pre._frames_seen, pre.state.feat_buf.shape[0])
-        chunk_scores = {}
-        for model_key, score in raw.items():
-            # warm-up guard: the model's window must be filled with frames
-            if frames_avail < self.model_feature_length[model_key] \
-                    or self._gate_is_low(model_key, chunk_scores):
-                chunk_scores[model_key] = 0.0
-                continue
-            chunk_scores[model_key] = self._record_raw(model_key,
-                                                       float(score))
-        return self._finish(chunk_scores, x, patience, threshold,
-                            debounce_time, chunks.shape[0] * CHUNK)
+        with tracing.span("nww.predict.rules"):
+            verifier = (self.cascade_config or {}).get("verifier")
+            if verifier in raw:
+                # the step runs every model on every chunk
+                counters["interpreter.verifier_runs"] += chunks.shape[0]
+            frames_avail = min(pre._frames_seen, pre.state.feat_buf.shape[0])
+            chunk_scores = {}
+            for model_key, score in raw.items():
+                # warm-up guard: the model's window must be filled with frames
+                if frames_avail < self.model_feature_length[model_key] \
+                        or self._gate_is_low(model_key, chunk_scores):
+                    chunk_scores[model_key] = 0.0
+                    continue
+                if model_key == verifier:
+                    counters["interpreter.verifier_served"] += 1
+                chunk_scores[model_key] = self._record_raw(model_key,
+                                                           float(score))
+            return self._finish(chunk_scores, x, patience, threshold,
+                                debounce_time, chunks.shape[0] * CHUNK)
 
     def predict(self, x: np.ndarray, patience: dict = {},
                 threshold: dict = {},
                 debounce_time: float = 0.0) -> DetectionResult:
+        with tracing.span("nww.predict", request=self._chunk_serial):
+            return self._predict(x, patience, threshold, debounce_time)
+
+    def _predict(self, x: np.ndarray, patience, threshold,
+                 debounce_time) -> DetectionResult:
         if not isinstance(x, np.ndarray):
             raise ValueError("Input audio `x` must be a Numpy array.")
         if self.noise_reducer_enabled:
@@ -737,10 +772,14 @@ class NanoInterpreter:
             return self._predict_fused(x, patience, threshold, debounce_time)
 
         # the general path: one session.run per model
-        n_prepared_samples = self.preprocessor(x)
+        with tracing.span("nww.predict.features"):
+            n_prepared_samples = self.preprocessor(x)
         if n_prepared_samples < CHUNK:
             return self._result(self.post_processed_scores)
+        self._chunk_serial += n_prepared_samples // CHUNK
+        counters["interpreter.chunks"] += n_prepared_samples // CHUNK
 
+        verifier = (self.cascade_config or {}).get("verifier")
         chunk_scores = {}
         for model_key, session in self.models.items():
             required_frames = self.model_feature_length[model_key]
@@ -748,16 +787,21 @@ class NanoInterpreter:
                     or self._gate_is_low(model_key, chunk_scores):
                 chunk_scores[model_key] = 0.0
                 continue
-            features = self.preprocessor.get_features(required_frames)
-            if self.is_stateful.get(model_key, False):
-                score, new_carry = session.run(
-                    features, carry=self.hidden_states.get(model_key))
-                self.hidden_states[model_key] = new_carry
-            else:
-                score, _ = session.run(features)
+            with tracing.span("nww.session.run", model=model_key):
+                features = self.preprocessor.get_features(required_frames)
+                if self.is_stateful.get(model_key, False):
+                    score, new_carry = session.run(
+                        features, carry=self.hidden_states.get(model_key))
+                    self.hidden_states[model_key] = new_carry
+                else:
+                    score, _ = session.run(features)
+            if model_key == verifier:
+                counters["interpreter.verifier_runs"] += 1
+                counters["interpreter.verifier_served"] += 1
             chunk_scores[model_key] = self._record_raw(model_key, score)
-        return self._finish(chunk_scores, x, patience, threshold,
-                            debounce_time, n_prepared_samples)
+        with tracing.span("nww.predict.rules"):
+            return self._finish(chunk_scores, x, patience, threshold,
+                                debounce_time, n_prepared_samples)
 
     def reset(self):
         self.prediction_buffer.clear()

@@ -18,6 +18,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+from nanowakeword_tpu_torch.utils.tracing import counters
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "nww_torch_kernels"
@@ -82,6 +84,7 @@ def build(name: str) -> Path:
                                f"{src.name} (exit {proc.returncode}):\n"
                                f"{proc.stderr}")
         os.replace(tmp, out)   # atomic: concurrent builds agree
+        counters["kernels.built"] += 1
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)

@@ -24,29 +24,30 @@ import torch
 
 from nanowakeword_tpu_torch.ops import _build
 from nanowakeword_tpu_torch.ops import mel as melops
+from nanowakeword_tpu_torch.utils import tracing
+from nanowakeword_tpu_torch.utils.tracing import counters
 
 _IN_DTYPES = {torch.int16: 0, torch.float32: 1, torch.bfloat16: 2}
 _OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_TAPS = 16   # filterbank taps per mel the kernel keeps (MAXTAP in the .cu)
 
-# Kernel launches since import (or the last reset): a run shows with it that
-# the main path went through the kernel. A call made while its stream is
-# being captured into a CUDA graph runs no kernel: it is recorded, and
-# counted in `captured`; whoever replays that graph counts the launches of
-# each replay with `count_replayed`.
-launches = 0
-captured = 0
+# Kernel launches since import (or the last reset), the `mel.launches`
+# counter of utils/tracing.py, read here as `launches`: a run shows with it
+# that the main path went through the kernel. A call made while its stream
+# is being captured into a CUDA graph runs no kernel: it is recorded, and
+# counted in `mel.captured` (`captured`); utils/cuda_graph.replay counts
+# the launches of each replay of that graph.
+_COUNTERS = {"launches": "mel.launches", "captured": "mel.captured"}
+
+
+def __getattr__(name: str):
+    if name in _COUNTERS:
+        return counters[_COUNTERS[name]]
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
-
-
-def count_replayed(n: int) -> None:
-    """Count `n` kernel launches made by replaying a captured graph."""
-    global launches
-    launches += n
+    counters["mel.launches"] = 0
 
 
 def mel_frontend_plain(x: torch.Tensor,
@@ -124,11 +125,14 @@ def _kernel_constants(device: str):
     return b0c.contiguous(), b0s.contiguous(), phase, fb.contiguous()
 
 
-def mel_frontend_cuda(x: torch.Tensor,
-                      out_dtype=torch.float32) -> torch.Tensor:
+def mel_frontend_cuda(x: torch.Tensor, out_dtype=torch.float32,
+                      span=None) -> torch.Tensor:
     """[B, n] or [n] int16/f32/bf16 audio on a CUDA device ->
-    [B, ceil(n/160), 32] (or [ceil(n/160), 32]) log-mel, by the kernel."""
-    global launches, captured
+    [B, ceil(n/160), 32] (or [ceil(n/160), 32]) log-mel, by the kernel.
+    `span`: the name of a program span (utils/tracing.py) opened around
+    the kernel's launch alone, so that its device time starts at the
+    launch and not at the checks and the output's allocation before it,
+    while the stream may stand idle."""
     if x.device.type != "cuda":
         raise ValueError(f"mel_frontend_cuda needs a CUDA tensor, got "
                          f"{x.device}")
@@ -152,17 +156,19 @@ def mel_frontend_cuda(x: torch.Tensor,
     with torch.cuda.device(x.device):
         b0c, b0s, phase, fb = _kernel_constants(str(x.device))
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.nww_mel_frontend(
-            x2.data_ptr(), _IN_DTYPES[x.dtype], out.data_ptr(),
-            _OUT_DTYPES[out_dtype], b0c.data_ptr(), b0s.data_ptr(),
-            phase.data_ptr(), fb.data_ptr(), batch, n, n_frames, stream)
+        with (tracing.span(span, device=x.device) if span
+              else tracing.NO_SPAN):
+            err = lib.nww_mel_frontend(
+                x2.data_ptr(), _IN_DTYPES[x.dtype], out.data_ptr(),
+                _OUT_DTYPES[out_dtype], b0c.data_ptr(), b0s.data_ptr(),
+                phase.data_ptr(), fb.data_ptr(), batch, n, n_frames, stream)
     if err != 0:
         raise RuntimeError(f"mel_frontend kernel launch failed: CUDA error "
                            f"{err}")
     if torch.cuda.is_current_stream_capturing():
-        captured += 1
+        counters["mel.captured"] += 1
     else:
-        launches += 1
+        counters["mel.launches"] += 1
     return out[0] if squeeze else out
 
 

@@ -18,17 +18,22 @@ import torch
 
 from nanowakeword_tpu_torch.ops import _build
 from nanowakeword_tpu_torch.ops.mix import check_mix_inputs, mix_gain_plain
+from nanowakeword_tpu_torch.utils.tracing import counters
 
 _FG_DTYPES = {torch.int16: 0, torch.float32: 1}
 
-# Kernel launches since import (or the last reset): a run shows with it that
-# the augmentation went through the kernel.
-launches = 0
+
+def __getattr__(name: str):
+    # `launches`: kernel launches since import (or the last reset), the
+    # `mix.launches` counter of utils/tracing.py: a run shows with it that
+    # the augmentation went through the kernel
+    if name == "launches":
+        return counters["mix.launches"]
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    counters["mix.launches"] = 0
 
 
 def _library() -> ctypes.CDLL:
@@ -45,7 +50,6 @@ def mix_gain_cuda(fg: torch.Tensor, bg: torch.Tensor, q: torch.Tensor,
                   scale: torch.Tensor, has_bg: torch.Tensor,
                   gain: torch.Tensor) -> torch.Tensor:
     """`mix_gain_plain`'s function on a CUDA device, by the kernel."""
-    global launches
     if fg.device.type != "cuda":
         raise ValueError(f"mix_gain_cuda needs CUDA tensors, got {fg.device}")
     check_mix_inputs(fg, bg, q, scale, has_bg, gain)
@@ -66,7 +70,7 @@ def mix_gain_cuda(fg: torch.Tensor, bg: torch.Tensor, q: torch.Tensor,
             out.data_ptr(), batch, n, stream)
     if err != 0:
         raise RuntimeError(f"mix_gain kernel launch failed: CUDA error {err}")
-    launches += 1
+    counters["mix.launches"] += 1
     return out
 
 

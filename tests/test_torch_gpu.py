@@ -6,8 +6,10 @@ launching the mix kernel, end-to-end training's module and step, whose
 forward launches the mel kernel, `.onnx` graphs on the card: the torch
 runtime against the CPU, and an `.onnx` cascade behind the mel kernel, and
 the quality campaign's evaluator: the card against the CPU, one graph
-capture per interpreter across files, and the benchmark's forward: the
-card against the CPU, one mel launch per replay of its captured graph.
+capture per interpreter across files, the benchmark's forward: the card
+against the CPU, one mel launch per replay of its captured graph, and the
+tracer's device times: the captured step's replay span against the graph's
+own time, and the bulk path's timed spans.
 
 Every test here is `gpu`-marked and skips without a CUDA device. On a
 machine with one: `python -m pytest -m gpu tests/test_torch_gpu.py -q`.
@@ -797,3 +799,86 @@ def test_bench_captured_forward_launches_mel_once_per_replay(cuda):
     assert mel_cuda.launches - before == 5
     eager = float(forward(audio).float().sum())
     np.testing.assert_allclose(float(acc), 5 * eager, rtol=1e-6)
+
+
+def test_replay_span_times_the_one_captured_graph(cuda):
+    """With tracing on, the interpreter replays the same graph: its scores
+    equal those with tracing off bit for bit, and no graph is captured
+    beyond one per interpreter. Each `nww.step.replay` span's device time
+    holds at least the graph's work (its time per replay, back to back)
+    and fits in its `predict` call's host interval up to the scores'
+    copy."""
+    from nanowakeword_tpu_torch.utils import tracing
+    clip = np.clip(np.random.default_rng(6).normal(0, 3000, 16000 * 2),
+                   -32768, 32767).astype(np.int16)
+    captured = mel_cuda.captured
+    interp = NanoInterpreter.load_model(CRNN, cascade=True,
+                                        gate_threshold=0.0, device=cuda)
+    assert mel_cuda.captured == captured + 1
+    interp.reset()
+    off = [[r.gate_score, r.score] for r in interp.predict_clip(clip)]
+    interp.reset()
+    with tracing.recording():
+        on = [[r.gate_score, r.score] for r in interp.predict_clip(clip)]
+    snap = tracing.snapshot()
+    assert mel_cuda.captured == captured + 1
+    np.testing.assert_array_equal(off, on)
+    assert np.asarray(off)[15:].min() > 0
+
+    step = interp._fused_step
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(50):
+        step.graph.replay()
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end) / 50
+
+    roots = snap.named("nww.predict")
+    replays = snap.named("nww.step.replay")
+    readbacks = snap.named("nww.predict.readback")
+    assert len(roots) == len(replays) == len(readbacks) == 25
+    for root, r, back in zip(roots, replays, readbacks):
+        assert r.parent == back.parent == root.id
+        assert r.device_ms >= 0.95 * plain_ms, (r.device_ms, plain_ms)
+        assert r.device_ms <= (back.end_ns - root.start_ns) / 1e6
+
+
+def test_bulk_spans_time_the_device(cuda):
+    """embed_clips and run_batch inside tracing.recording(): every copy and
+    compute span has a device time once the scores are on the host, and
+    the spans match the work (the mel within the call's device time)."""
+    from nanowakeword_tpu_torch.utils import tracing
+    header, model, encoder = load_nww(CRNN, device=cuda)
+    frontend = AudioFeatures(encoder_state_dict=encoder, device=cuda)
+    session = _LocalSession(model, header)
+    clips = torch.from_numpy(_audio(np.random.default_rng(3), (512, 32000)))
+    session.run_batch(frontend.embed_clips(clips, batch_size=256))
+    with tracing.recording():
+        session.run_batch(frontend.embed_clips(clips, batch_size=256))
+    snap = tracing.snapshot()
+    timed = ["nww.features.upload", "nww.features.mel",
+             "nww.features.encoder", "nww.features.download",
+             "nww.session.upload", "nww.session.forward",
+             "nww.session.download"]
+    for name in timed:
+        spans = snap.named(name)
+        assert len(spans) == (2 if name.startswith("nww.features") else 1)
+        assert all(s.device_ms is not None and s.device_ms > 0
+                   for s in spans), name
+    assert [s.name for s in snap.spans if s.parent is None] == [
+        "nww.embed_clips", "nww.run_batch"]
+
+    # the mel span holds the kernel's launch alone: its device time is the
+    # kernel's, timed back to back, and the launch's own latency
+    audio = clips[:256].to(cuda)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(20):
+        frontend._mel(audio)
+    end.record()
+    end.synchronize()
+    kernel_ms = start.elapsed_time(end) / 20
+    for s in snap.named("nww.features.mel"):
+        assert 0.95 * kernel_ms <= s.device_ms <= kernel_ms + 0.1, \
+            (s.device_ms, kernel_ms)
