@@ -573,9 +573,10 @@ def stateful_phase(rng, cuda, work) -> int:
 
 
 def one_call_step_phase(cuda, card) -> int:
-    """Phase 12: the shipped cascade with the VAD gate on. The replayed
-    graph against the same step run eagerly (equal bit for bit) and against
-    the CPU; per-chunk times of both. -> mel launches."""
+    """Phase 12: the shipped cascade with the VAD gate on, its step split at
+    the gate into two graphs. The replayed graphs against the same step run
+    eagerly (equal bit for bit) and against the CPU; per-chunk times of
+    both. -> mel launches."""
     import numpy as np
     import torch
     from nanowakeword_tpu_torch import NanoInterpreter
@@ -608,8 +609,9 @@ def one_call_step_phase(cuda, card) -> int:
     mel_cuda.reset_launches()
     interp = load(cuda)
     step = interp._fused_step
-    check(step is not None and step.graph is not None,
-          "load_model did not capture the step")
+    check(step is not None and step.graph is not None
+          and step.verifier_graph is not None,
+          "load_model did not capture the step's two graphs")
     check(step.mel_launches_per_replay == 1,
           f"{step.mel_launches_per_replay} mel launches in the graph")
     step.use_graph = False
@@ -636,9 +638,11 @@ def one_call_step_phase(cuda, card) -> int:
     check(cpu_err <= SCORE_TOL, f"one-call step card vs CPU {cpu_err}")
     check(0 < opened < n_chunks, "the VAD gate never opened or never closed")
     replay_ms = cuda_ms(step.graph.replay, 50)
-    log(f"[time] {card}: one replay of the captured step alone (CUDA "
+    verifier_ms = cuda_ms(step.verifier_graph.replay, 50)
+    log(f"[time] {card}: one replay of each captured graph alone (CUDA "
         f"events, mean of 50 back to back, no upload and no copy back): "
-        f"{replay_ms:.4f} ms")
+        f"the step without the verifier {replay_ms:.4f} ms, the verifier "
+        f"{verifier_ms:.4f} ms")
     for name, ms in (("eager step", ms_e), ("replayed graph", ms_g)):
         log(f"[time] {card}: streaming predict per 80 ms chunk, {name} "
             f"(cascade + VAD, host clock): p50 "

@@ -14,9 +14,14 @@ When every model is local, an 80 ms chunk is ONE device call (`_FusedStep`):
 the feature stream step and every model's score on static buffers, with one
 copy of the scores back to the host. On a CUDA device that call is a CUDA
 graph, captured once over the eager step and replayed per chunk; on the CPU
-the same step runs eagerly. With a remote session among the models,
-`predict()` takes the general path: one `session.run` per model, the
-verifier skipped while the gate is low.
+the same step runs eagerly. A cascade whose verifier is a stateless local
+model is split at the gate into two such calls, two graphs on a CUDA
+device: the second, the verifier alone, runs only on a chunk whose gate
+lets the verifier's score through, as the general path does (a stateful
+verifier, whose carry advances on every chunk, stays in the one call).
+With a remote session among the models, `predict()` takes the general
+path: one `session.run` per model, the verifier skipped while the gate is
+low.
 
 `.onnx` models load as `_OnnxSession`s (export/onnx_torch.py, on the same
 device); like a remote session they take the general path, the eager
@@ -252,38 +257,52 @@ def _tree_tensors(tree) -> list:
 
 
 class _FusedStep:
-    """One device call per 80 ms chunk: the feature stream step, then EVERY
+    """One device call per 80 ms chunk: the feature stream step, then every
     local model's score, stateless and stateful, on static buffers (the
     chunk in, the frontend's rings and the models' carries updated in place,
     the scores out).
 
-    On a CUDA device the call is one `torch.cuda.CUDAGraph`, captured over
-    `_step` after eager warm-up steps on a side stream (the warm-up builds
-    the mel kernel, fills its constants and lets cuDNN and cuBLAS settle;
-    none of that may happen under capture) and replayed once per chunk. The
-    state that warm-up touched is put back before the first real chunk. If
-    capture fails, `run` raises; there is no eager way back on the card.
-    On a CPU device `_step` runs eagerly. A graph must not be replayed from
-    two threads at once: an interpreter serves one stream.
+    A cascade whose verifier is a stateless local session is split at the
+    gate (`verifier` names it): the call holds the feature step and every
+    other model, and the verifier is a second call of its own, which reads
+    the newest frames of the feature ring that the first call has just
+    written and writes its score into a buffer of its own. The interpreter
+    makes the second call only on a chunk whose verifier score its rules
+    would serve (`NanoInterpreter._zeroed`). Any other set of models, a
+    stateful verifier's included, runs in the one call on every chunk.
+
+    On a CUDA device each call is a `torch.cuda.CUDAGraph`, captured over
+    `_step` (and `_verifier_step`, into the same memory pool) after eager
+    warm-up steps on a side stream (the warm-up builds the mel kernel,
+    fills its constants and lets cuDNN and cuBLAS settle; none of that may
+    happen under capture) and replayed once per chunk. The state that
+    warm-up touched is put back before the first real chunk. If capture
+    fails, `run` raises; there is no eager way back on the card. On a CPU
+    device the same steps run eagerly, in turn. A graph must not be
+    replayed from two threads at once: an interpreter serves one stream.
 
     While tracing is on (utils/tracing.py), the replay is the span
-    `nww.step.replay`: its host time is the graph's launch, and its device
-    time comes from timing events recorded on the stream around the launch,
-    so it also counts the launch's latency, during which the device waits
-    on the host.
+    `nww.step.replay` and the verifier's call with its score's copy to the
+    host the span `nww.step.verifier`. The replay's host time is the
+    graph's launch; the device time of both comes from timing events
+    recorded on the stream around them, so it also counts the launch's
+    latency, during which the device waits on the host.
     """
 
     WARMUP_STEPS = 3
 
-    def __init__(self, interp: "NanoInterpreter"):
+    def __init__(self, interp: "NanoInterpreter",
+                 verifier: Optional[str] = None):
         self.interp = interp
         self.pre = interp.preprocessor
-        self.names = list(interp.models)
+        self.verifier = verifier
+        self.names = [n for n in interp.models if n != verifier]
         self.sessions = [interp.models[n] for n in self.names]
         self.lengths = [interp.model_feature_length[n] for n in self.names]
         device = self.pre.device
         self.chunk = torch.zeros(CHUNK, device=device)
         self.scores = torch.zeros(len(self.names), device=device)
+        self.verifier_score = torch.zeros(1, device=device)
         self.carries = {}
         for name, session, length in zip(self.names, self.sessions,
                                          self.lengths):
@@ -292,6 +311,7 @@ class _FusedStep:
                     .initial_carry(self.pre.state.feat_buf[-length:][None])
         self.use_graph = device.type == "cuda"
         self.graph: Optional["torch.cuda.CUDAGraph"] = None
+        self.verifier_graph: Optional["torch.cuda.CUDAGraph"] = None
         self.mel_launches_per_replay = 0
 
     @torch.no_grad()
@@ -312,18 +332,33 @@ class _FusedStep:
             out.append(probs)
         self.scores.copy_(torch.cat(out))
 
+    @torch.no_grad()
+    def _verifier_step(self) -> None:
+        length = self.interp.model_feature_length[self.verifier]
+        feats = self.pre.state.feat_buf[-length:][None]
+        self.verifier_score.copy_(
+            self.interp.models[self.verifier].scores(feats))
+
     def _state_tensors(self) -> list:
         return list(self.pre.state) + _tree_tensors(
             tuple(self.carries.values()))
 
     def capture(self) -> None:
-        """Warm up, capture `_step` into a graph, restore the state."""
+        """Warm up, capture `_step` into a graph, restore the state; the
+        split verifier's step into a second graph in the same pool, warmed
+        up on the same side stream."""
+        side = torch.cuda.Stream(self.pre.device)
         self.graph, self.mel_launches_per_replay = capture_graph(
             self._step, self.pre.device, self._state_tensors(),
-            self.WARMUP_STEPS)
+            self.WARMUP_STEPS, side=side)
+        if self.verifier is not None:
+            self.verifier_graph, _ = capture_graph(
+                self._verifier_step, self.pre.device, (),
+                self.WARMUP_STEPS, pool=self.graph.pool(), side=side)
 
     def run(self, chunk: np.ndarray) -> dict:
-        """One [1280] float32 chunk -> {model: probability}."""
+        """One [1280] float32 chunk -> {model: probability}, the split
+        verifier left out."""
         hidden = self.interp.hidden_states
         with tracing.span("nww.predict.upload"):
             for name, carry in self.carries.items():
@@ -345,18 +380,32 @@ class _FusedStep:
             hidden[name] = carry
         return dict(zip(self.names, scores.astype(np.float64)))
 
+    def run_verifier(self) -> np.float64:
+        """The split verifier's probability on the newest frames."""
+        with tracing.span("nww.step.verifier", device=self.pre.device):
+            if self.use_graph:
+                replay(self.verifier_graph, 0)
+            else:
+                self._verifier_step()
+            score = self.verifier_score.cpu().numpy()
+        return score.astype(np.float64)[0]
+
 
 class NanoInterpreter:
     """Main inference engine. Use `NanoInterpreter.load_model()`.
 
-    kwargs: `device` (default "cuda"), `encoder_state_dict` (default: the
+    `cascade_config`: the gate, verifier and gate threshold of a local
+    cascade (load_model finds them), known before the one-call step is
+    built. kwargs: `device` (default "cuda"), `encoder_state_dict` (default: the
     encoder bundled in the first artifact that has one),
     `enable_noise_reduction`, `vad_threshold`, and the AudioFeatures
     arguments.
     """
 
-    def __init__(self, wakeword_models: List[str], **kwargs):
+    def __init__(self, wakeword_models: List[str],
+                 cascade_config: Optional[dict] = None, **kwargs):
         self._init_empty()
+        self.cascade_config = dict(cascade_config or {})
         device = kwargs.get("device", "cuda")
         encoder = kwargs.pop("encoder_state_dict", None)
         for mdl_path in wakeword_models:
@@ -582,7 +631,8 @@ class NanoInterpreter:
             instance._init_empty()
             instance._setup_components_no_preprocessor(**kwargs)
         else:
-            instance = cls(wakeword_models=paths, **kwargs)
+            instance = cls(wakeword_models=paths, cascade_config=cascade_cfg,
+                           **kwargs)
 
         if remote_cfg is not None:
             instance._inject_remote_session(remote_cfg)
@@ -592,8 +642,6 @@ class NanoInterpreter:
                     "verifier": remote_cfg["verifier"],
                     "gate_threshold": remote_cfg["gate_threshold"],
                 }
-        else:
-            instance.cascade_config = cascade_cfg
         if instance._fused_step is not None and instance._fused_step.use_graph:
             # capture now, so that the first chunk is already one replay
             instance._fused_step.capture()
@@ -659,13 +707,17 @@ class NanoInterpreter:
     def _build_fused_step(self) -> Optional[_FusedStep]:
         """The one-call step over all models, or None (general path) when
         the preprocessor is not AudioFeatures, or there is no model, or a
-        session that is not local (remote, or `.onnx`)."""
+        session that is not local (remote, or `.onnx`). A cascade's
+        stateless verifier is split off to run apart."""
         if not isinstance(self.preprocessor, AudioFeatures) or not self.models:
             return None
         if any(not isinstance(s, _LocalSession)
                for s in self.models.values()):
             return None
-        return _FusedStep(self)
+        verifier = self.cascade_config.get("verifier")
+        if verifier is None or self.models[verifier].stateful:
+            verifier = None     # a carry must advance on every chunk
+        return _FusedStep(self, verifier)
 
     # -- predict ------------------------------------------------------------------------
 
@@ -680,6 +732,22 @@ class NanoInterpreter:
         cfg = self.cascade_config
         return bool(cfg) and model_key == cfg["verifier"] and \
             chunk_scores.get(cfg["gate"], 0.0) < cfg["gate_threshold"]
+
+    def _zeroed(self, model_key: str, frames_avail: int,
+                chunk_scores: dict) -> bool:
+        """Whether the one-call step's rules serve 0.0 for `model_key`
+        whatever it scored: its window is not yet filled with frames, or
+        its gate, served before it in `chunk_scores`, stayed low."""
+        return frames_avail < self.model_feature_length[model_key] \
+            or self._gate_is_low(model_key, chunk_scores)
+
+    def _served(self, model_key: str, raw: dict, frames_avail: int,
+                chunk_scores: dict) -> float:
+        """The score the one-call step's rules serve for `model_key` from
+        its raw score (`_zeroed`, then `_record_raw`)."""
+        if self._zeroed(model_key, frames_avail, chunk_scores):
+            return 0.0
+        return self._record_raw(model_key, float(raw[model_key]))
 
     def _record_raw(self, model_key: str, score: float) -> float:
         """Keep the raw score; the first 5 predictions are zeroed."""
@@ -710,39 +778,47 @@ class NanoInterpreter:
     def _predict_fused(self, x: np.ndarray, patience, threshold,
                        debounce_time) -> DetectionResult:
         """predict() over the one-call step; same semantics as the general
-        path, but every model scores on every chunk."""
-        pre = self.preprocessor
+        path. Only the last chunk fed in a call is served, so a split
+        verifier runs at most once a call: on the last chunk, and only if
+        the rules would serve its score. Any other model scores on every
+        chunk."""
+        pre, step = self.preprocessor, self._fused_step
         with tracing.span("nww.predict.upload"):
             chunks = pre._chunker.feed(np.asarray(x, np.float32).reshape(-1))
             pre.accumulated_samples = pre._chunker.pending
-        if chunks.shape[0] == 0:
+        n = chunks.shape[0]
+        if n == 0:
             return self._result(self.post_processed_scores)
 
         raw = {}
         for chunk in chunks:
-            raw = self._fused_step.run(chunk)
-        self._chunk_serial += chunks.shape[0]
-        counters["interpreter.chunks"] += chunks.shape[0]
+            raw = step.run(chunk)
+        self._chunk_serial += n
+        counters["interpreter.chunks"] += n
+        frames_avail = min(pre._frames_seen, pre.state.feat_buf.shape[0])
+        verifier = self.cascade_config.get("verifier")
+        chunk_scores = {}
+        if step.verifier is not None:
+            gate = self.cascade_config["gate"]
+            chunk_scores[gate] = self._served(gate, raw, frames_avail, {})
+            ran = not self._zeroed(verifier, frames_avail, chunk_scores)
+            if ran:
+                raw[verifier] = step.run_verifier()
+            counters["interpreter.verifier_runs"] += ran
+            counters["interpreter.verifier_skipped"] += n - ran
+        elif verifier in raw:
+            counters["interpreter.verifier_runs"] += n
 
         with tracing.span("nww.predict.rules"):
-            verifier = (self.cascade_config or {}).get("verifier")
-            if verifier in raw:
-                # the step runs every model on every chunk
-                counters["interpreter.verifier_runs"] += chunks.shape[0]
-            frames_avail = min(pre._frames_seen, pre.state.feat_buf.shape[0])
-            chunk_scores = {}
-            for model_key, score in raw.items():
-                # warm-up guard: the model's window must be filled with frames
-                if frames_avail < self.model_feature_length[model_key] \
-                        or self._gate_is_low(model_key, chunk_scores):
-                    chunk_scores[model_key] = 0.0
-                    continue
-                if model_key == verifier:
-                    counters["interpreter.verifier_served"] += 1
-                chunk_scores[model_key] = self._record_raw(model_key,
-                                                           float(score))
+            for model_key in self.models:
+                if model_key not in chunk_scores:   # a split gate's is
+                    chunk_scores[model_key] = self._served(
+                        model_key, raw, frames_avail, chunk_scores)
+            if verifier in raw and \
+                    not self._zeroed(verifier, frames_avail, chunk_scores):
+                counters["interpreter.verifier_served"] += 1
             return self._finish(chunk_scores, x, patience, threshold,
-                                debounce_time, chunks.shape[0] * CHUNK)
+                                debounce_time, n * CHUNK)
 
     def predict(self, x: np.ndarray, patience: dict = {},
                 threshold: dict = {},

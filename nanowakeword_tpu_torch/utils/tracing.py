@@ -13,8 +13,12 @@ the graph helpers, the kernel builder and the interpreter add to it:
 - `kernels.built`: native libraries compiled by nvcc or g++ (ops/_build.py);
 - `interpreter.chunks`: 80 ms chunks `NanoInterpreter.predict` scored;
 - `interpreter.verifier_runs`, `interpreter.verifier_served`: chunks on
-  which a cascade's verifier ran, and those on which its own score reached
-  the result (neither the gate nor the window's warm-up guard zeroed it).
+  which a cascade's verifier really ran, and those on which its own score
+  reached the result (neither the gate nor the window's warm-up guard
+  zeroed it);
+- `interpreter.verifier_skipped`: chunks on which the one-call step, split
+  at the gate, did not run the cascade's verifier (for such a step
+  `verifier_runs` + `verifier_skipped` = `chunks`).
 
 `span(name, device=False, **attrs)` marks a stage of the program. Off (the
 default) it returns one shared no-op context. It is on inside
@@ -50,6 +54,8 @@ The span names, from the entry points down:
                              device (two spans of this name a chunk)
       nww.step.replay        the captured step's launch           (device)
       nww.predict.readback   the scores' copy to the host (waits for the step)
+      nww.step.verifier      a split cascade's verifier, its launch and its
+                             score's copy to the host            (device)
       nww.predict.rules      warm-up guard, cascade gate, VAD, patience
       nww.predict.features   (general path) the feature step
       nww.session.run        (general path) one model's score; attrs model
@@ -79,7 +85,7 @@ import torch
 COUNTERS = ("mel.launches", "mel.captured", "mix.launches",
             "graph.captures", "graph.replays", "kernels.built",
             "interpreter.chunks", "interpreter.verifier_runs",
-            "interpreter.verifier_served")
+            "interpreter.verifier_served", "interpreter.verifier_skipped")
 counters = dict.fromkeys(COUNTERS, 0)
 
 MAX_SPANS = 1 << 16          # the store keeps the newest spans of a session

@@ -29,6 +29,7 @@ from nanowakeword_tpu_torch.interpreter.nanointerpreter import _LocalSession
 from nanowakeword_tpu_torch.ops import augment as TA
 from nanowakeword_tpu_torch.ops import mel as TM
 from nanowakeword_tpu_torch.ops import mel_cuda, mix_cuda
+from test_torch_tracing import _gate_crossing_clip
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CRNN = os.path.join(ROOT, "campaign", "hey_nano_crnn.nww")
@@ -179,6 +180,62 @@ def test_replayed_step_equals_eager_step(cuda):
     np.testing.assert_array_equal(traces[0], traces[1])
     np.testing.assert_array_equal(traces[0], traces[2])
     assert (traces[0][15:] > 0).all()
+
+
+def test_split_step_graphs_equal_the_eager_split_step(cuda):
+    """The shipped cascade at its 0.3 gate: load_model captures two graphs,
+    the step without the verifier and the verifier alone. Over a clip on
+    which the gate both opens and stays low, their replays serve what the
+    same split step run eagerly serves, bit for bit. Each chunk launches
+    the mel kernel once and replays one graph, each verifier run one more;
+    with tracing on, each chunk has one `nww.step.replay` and one
+    `nww.predict.readback` span, each verifier run one `nww.step.verifier`.
+    A single model's interpreter still captures one graph."""
+    from nanowakeword_tpu_torch.utils import tracing
+    from nanowakeword_tpu_torch.utils.tracing import counters
+    captures = counters["graph.captures"]
+    interp = NanoInterpreter.load_model(CRNN, cascade=True, device=cuda)
+    step = interp._fused_step
+    assert counters["graph.captures"] == captures + 2
+    assert step.verifier == "hey_nano_crnn"
+    assert step.graph is not None and step.verifier_graph is not None
+    assert step.mel_launches_per_replay == 1
+    clip = _gate_crossing_clip()[:42 * 1280]
+    n = len(clip) // 1280
+    traces, runs = [], []
+    for use_graph in (True, False, True):
+        step.use_graph = use_graph
+        interp.reset()
+        before = dict(counters)
+        with tracing.recording():
+            out = interp.predict_clip(clip)
+        snap = tracing.snapshot()
+        grew = {k: counters[k] - before[k] for k in counters}
+        traces.append(np.array([[r.gate_score, r.score] for r in out]))
+        ran = grew["interpreter.verifier_runs"]
+        assert grew["interpreter.chunks"] == n
+        assert ran + grew["interpreter.verifier_skipped"] == n
+        assert ran == grew["interpreter.verifier_served"] \
+            == np.count_nonzero(traces[-1][:, 1])
+        assert grew["mel.launches"] == n
+        assert grew["graph.replays"] == (n + ran if use_graph else 0)
+        assert len(snap.named("nww.step.replay")) \
+            == len(snap.named("nww.predict.readback")) == n
+        assert len(snap.named("nww.step.verifier")) == ran
+        assert all(s.device_ms is not None
+                   for s in snap.named("nww.step.verifier"))
+        runs.append(ran)
+    assert counters["graph.captures"] == captures + 2
+    np.testing.assert_array_equal(traces[0], traces[1])
+    np.testing.assert_array_equal(traces[0], traces[2])
+    gate = traces[0][16:, 0]
+    assert (gate >= 0.3).any() and (gate < 0.3).any()
+    assert 0 < runs[0] < n
+
+    single = NanoInterpreter.load_model(CRNN, device=cuda)
+    assert counters["graph.captures"] == captures + 3
+    assert single._fused_step.verifier is None
+    assert single._fused_step.verifier_graph is None
 
 
 def test_stateful_model_card_matches_cpu(cuda, tmp_path):
@@ -802,9 +859,9 @@ def test_bench_captured_forward_launches_mel_once_per_replay(cuda):
 
 
 def test_replay_span_times_the_one_captured_graph(cuda):
-    """With tracing on, the interpreter replays the same graph: its scores
-    equal those with tracing off bit for bit, and no graph is captured
-    beyond one per interpreter. Each `nww.step.replay` span's device time
+    """With tracing on, the interpreter replays the same graphs: its scores
+    equal those with tracing off bit for bit, and nothing is captured
+    beyond what load_model captured. Each `nww.step.replay` span's device time
     holds at least the graph's work (its time per replay, back to back)
     and fits in its `predict` call's host interval up to the scores'
     copy."""

@@ -7,6 +7,7 @@ modules, and the command line. Inputs come from numpy seeds; each tolerance
 is stated where it is used.
 """
 
+import contextlib
 import os
 import sys
 import time
@@ -36,6 +37,7 @@ from nanowakeword_tpu_torch.interpreter.nanointerpreter import _FusedStep
 from nanowakeword_tpu_torch.models import architectures as A
 from nanowakeword_tpu_torch.models.model import Model
 from nanowakeword_tpu_torch.runtime import AudioRing
+from test_torch_tracing import _gate_crossing_clip
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CRNN = os.path.join(ROOT, "campaign", "hey_nano_crnn.nww")
@@ -333,6 +335,167 @@ def test_general_path_skips_the_verifier_when_the_gate_is_low():
     interp.cascade_config["gate_threshold"] = -1.0
     interp.predict_clip(clip[:1280 * 5])
     assert calls["n"] == 5
+
+
+# -- the one-call step split at the gate ------------------------------------------
+
+VERIFIER = "hey_nano_crnn"
+CHUNK = 1280
+
+
+def _whole_chunks_clip() -> np.ndarray:
+    """The tracing tests' clip on which the shipped gate crosses its 0.3
+    threshold, cut to 42 whole chunks (whole calls of three)."""
+    return _gate_crossing_clip()[:42 * CHUNK]
+
+
+@pytest.fixture(scope="module")
+def port_cascade():
+    """The shipped cascade at its default gate threshold, 0.3."""
+    return NanoInterpreter.load_model(CRNN, cascade=True, device="cpu")
+
+
+@contextlib.contextmanager
+def _counted_calls(module):
+    """A list that gains one item per forward call of `module` while the
+    block runs."""
+    calls = []
+    handle = module.register_forward_hook(lambda *_: calls.append(1))
+    try:
+        yield calls
+    finally:
+        handle.remove()
+
+
+def _verifier_counters():
+    return {k: port_ni.counters[f"interpreter.{k}"]
+            for k in ("chunks", "verifier_runs", "verifier_skipped",
+                      "verifier_served")}
+
+
+def _counted_trace(interp, clip, **kwargs):
+    """-> (gate scores, verifier scores, counters' changes, verifier
+    module calls) of the clip streamed from a reset."""
+    before = _verifier_counters()
+    with _counted_calls(interp.models[VERIFIER].model.module) as calls:
+        gate, verifier = _cascade_trace(interp, clip, **kwargs)
+    after = _verifier_counters()
+    return gate, verifier, {k: after[k] - before[k] for k in after}, \
+        len(calls)
+
+
+@pytest.mark.parametrize("chunks_per_call", [1, 3])
+def test_split_step_equals_general_path(port_cascade, chunks_per_call):
+    """A clip on which the gate crosses 0.3, fed one chunk or three a
+    call: the step split at the gate serves the same gate and verifier
+    scores as the general path, bit for bit. Only the last chunk of a call
+    is served, so the split verifier runs at most once a call."""
+    interp = port_cascade
+    assert interp._fused_step.verifier == VERIFIER
+    assert interp._fused_step.names == ["hey_nano_crnn_lite"]
+    clip = _whole_chunks_clip()
+    kwargs = {"chunk_size": CHUNK * chunks_per_call}
+    gate, verifier, count, calls = _counted_trace(interp, clip, **kwargs)
+    step, interp._fused_step = interp._fused_step, None
+    try:
+        general = _cascade_trace(interp, clip, **kwargs)
+    finally:
+        interp._fused_step = step
+    np.testing.assert_array_equal(gate, general[0])
+    np.testing.assert_array_equal(verifier, general[1])
+    served = int(np.count_nonzero(verifier))
+    assert 0 < served < len(verifier)
+    assert (gate[16 // chunks_per_call:] < 0.3).any()
+    assert count["chunks"] == len(clip) // CHUNK
+    assert calls == count["verifier_runs"] == count["verifier_served"] \
+        == served <= len(verifier)
+    assert count["verifier_runs"] + count["verifier_skipped"] \
+        == count["chunks"]
+
+
+def test_split_verifier_runs_once_per_served_score(port_cascade):
+    """Over a gate that opens and closes, and through a reset, the
+    verifier's module is called exactly as often as its score is served:
+    never while its window fills or while the gate stays low."""
+    interp = port_cascade
+    clip = _whole_chunks_clip()
+    twice = np.concatenate([clip[len(clip) // 2:], clip])
+    results = []
+    before = _verifier_counters()
+    with _counted_calls(interp.models[VERIFIER].model.module) as calls:
+        for piece in (clip, twice):
+            interp.reset()
+            results += interp.predict_clip(piece)
+    served = sum(1 for r in results if r.score > 0)
+    gated = sum(1 for r in results if r.gate_score < 0.3)
+    assert served > 0 and gated > 0
+    assert len(calls) == served
+    assert port_ni.counters["interpreter.verifier_runs"] \
+        - before["verifier_runs"] == served
+    assert port_ni.counters["interpreter.verifier_skipped"] \
+        - before["verifier_skipped"] == len(results) - served
+
+
+# a gate this close to its threshold may fall on either side of it in the
+# two packages' float32 sums, and with it the verifier's score
+GATE_MARGIN = SCORE_TOL
+
+
+@pytest.fixture(scope="module")
+def jax_cascade():
+    """The JAX package's shipped cascade at its default gate threshold."""
+    return JaxNanoInterpreter.load_model(CRNN, cascade=True)
+
+
+@pytest.mark.parametrize("chunks_per_call", [1, 3])
+def test_split_step_matches_jax_where_the_gate_crosses(
+        port_cascade, jax_cascade, chunks_per_call):
+    """The shipped cascade at its 0.3 gate, on a clip whose gate crosses
+    it, fed one chunk or three a call: the split step serves the JAX
+    package's gate and verifier scores (1e-3), and zeroes the verifier on
+    the same chunks, leaving out those whose gate lies within GATE_MARGIN
+    of the threshold."""
+    clip = _whole_chunks_clip()
+    kwargs = {"chunk_size": CHUNK * chunks_per_call}
+    gate, verifier = _cascade_trace(port_cascade, clip, **kwargs)
+    ref_gate, ref_verifier = _cascade_trace(jax_cascade, clip, **kwargs)
+    assert len(gate) == len(ref_gate) == 42 // chunks_per_call
+    _assert_close(gate, ref_gate, SCORE_TOL)
+    assert (gate == 0).tolist() == (ref_gate == 0).tolist()
+    clear = np.abs(ref_gate - 0.3) > GATE_MARGIN
+    _assert_close(verifier[clear], ref_verifier[clear], SCORE_TOL)
+    assert (verifier[clear] == 0).tolist() == (ref_verifier[clear] == 0
+                                                ).tolist()
+    # after warm-up the gate both let the verifier through and held it back
+    warm = np.arange(len(gate)) >= 16 // chunks_per_call
+    assert (ref_verifier[clear & warm] > 0).any()
+    assert (ref_verifier[clear & warm] == 0).any()
+    assert clear[warm].sum() >= warm.sum() - 2
+
+
+def test_stateful_verifier_stays_in_the_one_call(sgru_artifacts):
+    """A cascade whose verifier threads a carry (a streaming_gru behind the
+    shipped lite gate): the step is not split, the verifier runs on every
+    chunk, gated or not, so that its carry advances as in the JAX
+    package's one-call step, whose scores it matches (1e-3)."""
+    path = sgru_artifacts["port"]
+    ours = NanoInterpreter.load_model(path, gate_model=LITE, device="cpu")
+    ref = JaxNanoInterpreter.load_model(path, gate_model=LITE)
+    assert ours.cascade_config["verifier"] == "sgru"
+    assert ours._fused_step.verifier is None
+    assert ours._fused_step.names == ["hey_nano_crnn_lite", "sgru"]
+    clip = _whole_chunks_clip()
+    before = _verifier_counters()
+    gate, verifier = _cascade_trace(ours, clip)
+    after = _verifier_counters()
+    ref_gate, ref_verifier = _cascade_trace(ref, clip)
+    assert after["verifier_runs"] - before["verifier_runs"] == len(gate)
+    assert after["verifier_skipped"] == before["verifier_skipped"]
+    assert 0 < np.count_nonzero(verifier) < len(verifier)
+    assert (gate == 0).tolist() == (ref_gate == 0).tolist()
+    assert (verifier == 0).tolist() == (ref_verifier == 0).tolist()
+    _assert_close(gate, ref_gate, SCORE_TOL)
+    _assert_close(verifier, ref_verifier, SCORE_TOL)
 
 
 def test_streaming_state_is_written_in_place(port_cascade_vad):

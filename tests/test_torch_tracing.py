@@ -24,6 +24,8 @@ CHUNK = 1280
 # the chunker, then the chunk's copy to the device, each an upload span
 FUSED = ["nww.predict.upload", "nww.predict.upload", "nww.step.replay",
          "nww.predict.readback", "nww.predict.rules"]
+# a chunk on which the step, split at the gate, also runs the verifier
+VERIFIED = FUSED[:4] + ["nww.step.verifier"] + FUSED[4:]
 
 
 def _tone(seconds: float, hz: float = 200.0) -> np.ndarray:
@@ -74,8 +76,12 @@ def test_off_records_no_span_while_the_counters_count(cascade, bulk):
     assert _ids(tracing.snapshot()) == spans
     assert counters["interpreter.chunks"] == before["interpreter.chunks"] \
         + 12
+    # 12 chunks never fill the verifier's 16-frame window: the split step
+    # skips it on every one
     assert counters["interpreter.verifier_runs"] \
-        == before["interpreter.verifier_runs"] + 12
+        == before["interpreter.verifier_runs"]
+    assert counters["interpreter.verifier_skipped"] \
+        == before["interpreter.verifier_skipped"] + 12
     # the CPU takes the kernels' plain versions: nothing launches
     assert counters["mel.launches"] == before["mel.launches"]
 
@@ -164,9 +170,9 @@ def test_profiler_turns_spans_on_and_shows_their_copies(cascade):
 
 
 def test_verifier_counters_equal_a_hand_count(cascade):
-    """The gate crosses 0.3: the verifier runs on every chunk of the
-    captured step, and its score is served on the chunks whose gate was at
-    or above the threshold once its own 16-frame window was filled."""
+    """The gate crosses 0.3: the step split at the gate runs the verifier
+    on exactly the chunks whose gate was at or above the threshold once
+    its own 16-frame window was filled, and serves its score there."""
     assert cascade.cascade_config["gate_threshold"] == 0.3
     clip = _gate_crossing_clip()
     with tracing.recording():
@@ -178,8 +184,16 @@ def test_verifier_counters_equal_a_hand_count(cascade):
                  if k + 1 >= window and g >= 0.3)
     assert 0 < served < len(results) - window + 1
     assert (gate[window - 1:] < 0.3).any()
-    assert snap.counters["interpreter.verifier_runs"] == len(results)
+    assert snap.counters["interpreter.verifier_runs"] == served
+    assert snap.counters["interpreter.verifier_skipped"] \
+        == len(results) - served
     assert snap.counters["interpreter.verifier_served"] == served
+    assert len(snap.named("nww.step.verifier")) == served
+    roots = [s for s in snap.spans if s.parent is None]
+    assert len(roots) == len(results)
+    for root, r in zip(roots, results):
+        assert [k.name for k in _children(snap, root)] \
+            == (VERIFIED if r.score > 0 else FUSED)
     assert served == sum(1 for r in results if r.score > 0)
 
 
