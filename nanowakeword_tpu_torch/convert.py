@@ -26,8 +26,11 @@ Layouts:
 * LayerNorm and BatchNorm `scale` become `weight`, BatchNorm's running
   `mean`/`var` become `running_mean`/`running_var`;
 * attention's `query`/`key`/`value` kernels [d, heads, head_dim] become
-  Linear weights [heads * head_dim, d], and `out` [heads, head_dim, d]
-  becomes [d, heads * head_dim].
+  Linear weights [heads * head_dim, d] (key and value with their own head
+  count under grouped-query attention), and `out` [heads, head_dim, d]
+  becomes [d, heads * head_dim]; a projection without bias has no `bias`
+  leaf, as a Dense without one has none;
+* RMSNorm's `scale` becomes `weight`.
 """
 
 from __future__ import annotations
@@ -103,8 +106,15 @@ def encoder_state_dict_from_flax(variables) -> dict:
     return sd
 
 
-def _np(t) -> np.ndarray:
-    return t.detach().cpu().numpy().astype(np.float32)
+def _np(t, axes=None) -> np.ndarray:
+    """A float32 numpy copy of a tensor, its axes first permuted to `axes`:
+    one copy, by torch's copy on every thread (a weight of a 3 GB model
+    moved by numpy alone took seconds)."""
+    t = t.detach()
+    if axes is not None:
+        t = t.permute(axes)
+    return t.to("cpu", torch.float32).clone(
+        memory_format=torch.contiguous_format).numpy()
 
 
 def _sub(sd: dict, prefix: str) -> dict:
@@ -119,7 +129,7 @@ def _count(sd: dict, prefix: str) -> int:
 def _kernel_flax(sd, axes) -> dict:
     """A Linear / Conv state_dict -> flax {kernel, bias}; `axes` moves the
     weight into flax's layout."""
-    out = {"kernel": _np(sd["weight"]).transpose(axes).copy()}
+    out = {"kernel": _np(sd["weight"], axes)}
     if "bias" in sd:
         out["bias"] = _np(sd["bias"])
     return out
@@ -136,33 +146,35 @@ def _norm_flax(sd) -> dict:
 def _rnn_flax(sd) -> dict:
     return {"input_proj": _dense_flax(_sub(sd, "input_proj")),
             "recurrent_bias": _np(sd["recurrent.bias"]),
-            "recurrent_kernel": _np(sd["recurrent.weight"]).T.copy()}
+            "recurrent_kernel": _np(sd["recurrent.weight"], (1, 0))}
 
 
 def _attention(p, module) -> dict:
-    d = module.out.in_features
     sd = {}
-    for name in ("query", "key", "value"):
-        sd[f"{name}.weight"] = _t(np.asarray(p[name]["kernel"])
-                                  .reshape(-1, d).T)
-        sd[f"{name}.bias"] = _t(np.asarray(p[name]["bias"]).reshape(d))
-    sd["out.weight"] = _t(np.asarray(p["out"]["kernel"]).reshape(d, -1).T)
-    sd["out.bias"] = _t(p["out"]["bias"])
+    for name in ("query", "key", "value", "out"):
+        lin = getattr(module, name)
+        kernel = np.asarray(p[name]["kernel"])
+        shape = (-1, lin.out_features) if name == "out" \
+            else (lin.in_features, -1)
+        sd[f"{name}.weight"] = _t(kernel.reshape(shape).T)
+        if "bias" in p[name]:
+            sd[f"{name}.bias"] = _t(np.asarray(p[name]["bias"]).reshape(-1))
     return sd
 
 
 def _attention_flax(sd, module) -> dict:
-    h = module.n_head
-    d = module.out.in_features
+    hd = module.head_dim
     out = {}
-    for name in ("query", "key", "value"):
-        out[name] = {
-            "kernel": _np(sd[f"{name}.weight"]).T.reshape(-1, h, d // h)
-            .copy(),
-            "bias": _np(sd[f"{name}.bias"]).reshape(h, d // h)}
-    out["out"] = {"kernel": _np(sd["out.weight"]).T.reshape(h, d // h, -1)
-                  .copy(),
-                  "bias": _np(sd["out.bias"])}
+    for name in ("query", "key", "value", "out"):
+        w = _np(sd[f"{name}.weight"], (1, 0))
+        if name == "out":
+            out[name] = {"kernel": w.reshape(module.n_head, hd, -1)}
+        else:
+            out[name] = {"kernel": w.reshape(w.shape[0], -1, hd)}
+        if f"{name}.bias" in sd:
+            bias = _np(sd[f"{name}.bias"])
+            out[name]["bias"] = bias if name == "out" \
+                else bias.reshape(-1, hd)
     return out
 
 
@@ -236,6 +248,8 @@ _LEAVES = (
      lambda sd, m: _kernel_flax(sd, (2, 1, 0))),
     (nn.LayerNorm, "LayerNorm", lambda p, s, m: _layernorm(p),
      lambda sd, m: _norm_flax(sd)),
+    (A.RMSNorm, "RMSNorm", lambda p, s, m: {"weight": _t(p["scale"])},
+     lambda sd, m: {"scale": _np(sd["weight"])}),
     (_BATCHNORMS, "BatchNorm", lambda p, s, m: _batchnorm(p, s),
      lambda sd, m: _norm_flax(sd)),
     (FastGRU, "FastGRU", lambda p, s, m: _rnn(p),
@@ -286,7 +300,8 @@ def _module_from_flax(module, params, stats) -> dict:
     if not hasattr(module, "flax_order"):
         return _opaque_from_tree(params)
     names = _child_paths(module)
-    sd = {}
+    sd = {name: _t(params[name]) for name in getattr(module, "flax_params",
+                                                     ())}
     for name, child in _flax_children(module):
         sd.update(_prefixed(names[id(child)], _module_from_flax(
             child, params[name], (stats or {}).get(name))))
@@ -306,7 +321,9 @@ def _module_to_flax(module, sd):
     if not hasattr(module, "flax_order"):
         return _opaque_to_tree(sd), None
     names = _child_paths(module)
-    params, stats = {}, {}
+    params = {name: _np(sd[name]) for name in getattr(module, "flax_params",
+                                                      ())}
+    stats = {}
     for name, child in _flax_children(module):
         params[name], child_stats = _module_to_flax(
             child, _sub(sd, names[id(child)]))

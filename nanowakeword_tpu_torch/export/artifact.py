@@ -25,8 +25,8 @@ import torch
 from nanowakeword_tpu_torch.convert import (encoder_state_dict_from_flax,
                                             model_state_dict_from_flax)
 from nanowakeword_tpu_torch.utils.flax_msgpack import (Bfloat16Bits,
-                                                       msgpack_restore,
-                                                       msgpack_serialize)
+                                                       msgpack_dump,
+                                                       msgpack_load)
 from nanowakeword_tpu_torch.utils.logger import print_error, print_info
 
 MAGIC = b"NWW2"
@@ -44,6 +44,13 @@ ARCH_CONFIG_KEYS = [
     "crnn_cnn_channels", "crnn_rnn_type",
     "tcn_channels", "tcn_kernel_size",
     "quartznet_config", "custom_model_config",
+    "granite_d_model", "granite_layer_types", "granite_intermediate_size",
+    "granite_mamba_d_state", "granite_mamba_d_conv", "granite_mamba_expand",
+    "granite_mamba_n_heads", "granite_mamba_d_head",
+    "granite_mamba_n_groups", "granite_mamba_chunk_size",
+    "granite_attention_heads", "granite_kv_heads",
+    "granite_attention_multiplier", "granite_residual_multiplier",
+    "granite_embedding_multiplier", "granite_rms_norm_eps",
 ]
 # marks a leaf stored unquantized inside an int8 artifact
 _NO_SCALE = np.zeros((0,), np.float32)
@@ -85,7 +92,7 @@ def _read_nww(path: str):
     trees in the flax layout as float32 numpy arrays."""
     with open(path, "rb") as f:
         header = _read_header(f, path)
-        payload = msgpack_restore(f.read())
+        payload = msgpack_load(f)
 
     weights_dtype = header.get("weights_dtype", "float32")
     if weights_dtype not in WEIGHTS_DTYPES:
@@ -127,7 +134,7 @@ def load_nww(path: str, device="cuda"):
         layer_dim=int(build.get("layer_dim", 128)),
         n_blocks=int(build.get("n_blocks", 1)),
         dropout_prob=float(build.get("dropout_prob", 0.5)),
-        device=device,
+        seed=None, device=device,
     )
     model.load_state_dict(model_state_dict_from_flax(variables, model))
     if encoder is not None:
@@ -237,13 +244,12 @@ def save_nww(path: str, *, model, config, model_name: str,
         payload["encoder_variables"] = stored_enc
         if enc_scales is not None:
             payload["encoder_scales"] = enc_scales
-    blob = msgpack_serialize(payload)
     header_bytes = json.dumps(header).encode("utf-8")
     with open(path, "wb") as f:
         f.write(MAGIC)
         f.write(struct.pack("<I", len(header_bytes)))
         f.write(header_bytes)
-        f.write(blob)
+        msgpack_dump(payload, f)
     print_info(f"Saved model artifact to '{path}' "
                f"({os.path.getsize(path) / 1024:.1f} KB)")
     return path
@@ -267,7 +273,7 @@ def export_params_msgpack(model, model_name: str, output_dir: str) -> str:
     path = os.path.join(output_dir, model_name + ".msgpack")
     print_info(f"Saving raw parameters to '{path}'")
     with open(path, "wb") as f:
-        f.write(msgpack_serialize(model.variables))
+        msgpack_dump(model.variables, f)
     return path
 
 

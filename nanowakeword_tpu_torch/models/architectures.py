@@ -2,7 +2,10 @@
 
 The counterpart of `nanowakeword_tpu/models/architectures.py`: the thirteen
 selectable backbones on [B, T, 96] feature frames, each emitting an
-`embedding_dim` vector for the shared head (models/model.py). They are
+`embedding_dim` vector for the shared head (models/model.py), and one the
+JAX package does not have, the Granite-4.0-H hybrid (Mamba-2 mixers and
+grouped-query attention; its plain reference is
+`port_bench/reference/families/granite_hybrid.py`). They are
 `nn.Module`s on library calls (matrix products, cuDNN convolutions,
 softmax), as the reference computes them in XLA.
 
@@ -26,7 +29,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -34,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from nanowakeword_tpu_torch.models.fast_rnn import FastGRU, FastLSTM
+from nanowakeword_tpu_torch.utils import tracing
 from nanowakeword_tpu_torch.utils.precision import no_tf32_convs
 
 Activation = Callable[[torch.Tensor], torch.Tensor]
@@ -452,30 +456,60 @@ class MultiHeadAttention(nn.Module):
     weights, then the output projection. The four projections have biases;
     row h * head_dim + d of `query.weight` is flax's `query/kernel[:, h, d]`
     and column h * head_dim + d of `out.weight` is `out/kernel[h, d, :]`,
-    so the weights carry across by a reshape."""
+    so the weights carry across by a reshape.
 
-    def __init__(self, d_model: int, n_head: int, dropout: float):
+    The Granite hybrid's attention is the same module with other settings:
+    `kv_heads` below `n_head` gives grouped-query attention, key and value
+    head j serving query heads j g .. j g + g - 1 (g = n_head / kv_heads,
+    the order of Hugging Face's `repeat_kv`); `bias=False` drops the four
+    biases; `causal` masks every later position; `scale` multiplies Q in
+    place of 1 / sqrt(head_dim). The defaults give flax's module as
+    described above."""
+
+    def __init__(self, d_model: int, n_head: int, dropout: float,
+                 kv_heads: Optional[int] = None, bias: bool = True,
+                 causal: bool = False, scale: Optional[float] = None):
         super().__init__()
-        if d_model % n_head:
+        kv_heads = kv_heads or n_head
+        if d_model % n_head or n_head % kv_heads:
             raise ValueError(f"d_model {d_model} is not divisible by "
-                             f"n_head {n_head}")
-        self.n_head = n_head
-        self.query = nn.Linear(d_model, d_model)
-        self.key = nn.Linear(d_model, d_model)
-        self.value = nn.Linear(d_model, d_model)
-        self.out = nn.Linear(d_model, d_model)
+                             f"n_head {n_head}, or n_head by kv_heads "
+                             f"{kv_heads}")
+        self.n_head, self.kv_heads = n_head, kv_heads
+        self.head_dim = d_model // n_head
+        kv_width = kv_heads * self.head_dim
+        self.query = nn.Linear(d_model, d_model, bias=bias)
+        self.key = nn.Linear(d_model, kv_width, bias=bias)
+        self.value = nn.Linear(d_model, kv_width, bias=bias)
+        self.out = nn.Linear(d_model, d_model, bias=bias)
         self.dropout = nn.Dropout(dropout)
+        self.causal, self.scale = causal, scale
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, d = x.shape
-        heads = (b, t, self.n_head, d // self.n_head)
-        q = self.query(x).view(heads).transpose(1, 2)      # [B, h, T, hd]
-        k = self.key(x).view(heads).transpose(1, 2)
-        v = self.value(x).view(heads).transpose(1, 2)
-        q = q / math.sqrt(d // self.n_head)
-        weights = torch.softmax(q @ k.transpose(-1, -2), dim=-1)
-        mixed = self.dropout(weights) @ v                  # [B, h, T, hd]
+        hd = self.head_dim
+        q = self.query(x).view(b, t, self.n_head, hd).transpose(1, 2)
+        k = self.key(x).view(b, t, self.kv_heads, hd).transpose(1, 2)
+        v = self.value(x).view(b, t, self.kv_heads, hd).transpose(1, 2)
+        q = q / math.sqrt(hd) if self.scale is None else q * self.scale
+        mixed = self._core(q, k, v)                        # [B, h, T, hd]
         return self.out(mixed.transpose(1, 2).reshape(b, t, d))
+
+    def _core(self, q, k, v):
+        """[B, h, T, hd] queries, [B, kv, T, hd] keys and values -> [B, h,
+        T, hd]. A group's query heads are stacked along the rows of one
+        product with their key head, so no key or value is copied."""
+        b, h, t, hd = q.shape
+        g = h // self.kv_heads
+        q = q.reshape(b, self.kv_heads, g * t, hd)
+        scores = q @ k.transpose(-1, -2)                   # [B, kv, gT, T]
+        if self.causal:
+            later = torch.ones(t, t, dtype=torch.bool,
+                               device=q.device).triu_(1)
+            scores = scores.view(b, self.kv_heads, g, t, t).masked_fill(
+                later, float("-inf")).view(b, self.kv_heads, g * t, t)
+        weights = torch.softmax(scores, dim=-1)
+        return (self.dropout(weights) @ v).view(b, h, t, hd)
 
 
 class PostLNEncoderLayer(nn.Module):
@@ -820,3 +854,237 @@ class BcResNetModel(nn.Module):
             for block in self.blocks:
                 h = block(h)
         return self.dense(self.dropout(h.mean(dim=(2, 3))))
+
+
+# -- the Granite-4.0-H hybrid: Mamba-2 mixers and grouped-query attention ----
+
+GRANITE_LAYER_TYPES = tuple(
+    "attention" if i % 10 == 5 else "mamba" for i in range(40))
+
+
+class RMSNorm(nn.Module):
+    """x / sqrt(mean(x^2) + eps) * scale over the last axis (flax's
+    `RMSNorm`, whose one leaf is `scale`)."""
+
+    def __init__(self, d: int, eps: float = 1e-5):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(d))
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + self.eps) \
+            * self.weight
+
+
+def ssd_chunked(x, dt, a, b, c, chunk: int) -> torch.Tensor:
+    """Mamba-2's scan by its chunked algorithm (the SSD of Dao and Gu,
+    arXiv:2405.21060, section 6). x [B, T, H, P], dt [B, T, H] (the step
+    sizes, after the softplus), a [H] (negative), b and c [B, T, G, N] with
+    H a multiple of G -> y [B, T, H, P] where, for head h of group g and
+    from the zero state,
+
+        s_t = exp(dt_t a) s_{t-1} + dt_t x_t b_t^T,    y_t = s_t c_t.
+
+    The window is cut into chunks of `chunk` positions (the last is padded
+    at its end with zero steps, which change no earlier output). Within a
+    chunk y = (L o C B^T)(dt x) with L_ij = exp(sum_{k=j+1..i} dt_k a) for
+    i >= j; each chunk's own final state is B^T (dt x) decayed to its end;
+    the states are passed from chunk to chunk; and position i reads the
+    state that entered its chunk through c_i, decayed to i. The segment
+    sums are differences of one cumulative sum per chunk, as the fused
+    kernels of Mamba-2 take them."""
+    bsz, t, h, p = x.shape
+    g, n = b.shape[2:]
+    hg = h // g
+    q = min(chunk, t)
+    nc = -(-t // q)
+    if nc * q > t:
+        x, dt, b, c = (F.pad(v, (0, 0) * (v.ndim - 2) + (0, nc * q - t))
+                       for v in (x, dt, b, c))
+    da = (dt * a).view(bsz, nc, q, h).permute(0, 3, 1, 2)      # [B, H, c, q]
+    cum = torch.cumsum(da, dim=-1)
+    xdt = (x * dt[..., None]).view(bsz, nc, q, h, p).permute(0, 3, 1, 2, 4)
+    b = b.view(bsz, nc, q, g, n).permute(0, 3, 1, 2, 4)         # [B, G, c, q, N]
+    c = c.view(bsz, nc, q, g, n).permute(0, 3, 1, 2, 4)
+    # within each chunk
+    later = torch.ones(q, q, dtype=torch.bool, device=x.device).triu_(1)
+    mix = (cum[..., :, None] - cum[..., None, :]).masked_fill_(
+        later, float("-inf")).exp_()                            # [B, H, c, q, q]
+    mix.view(bsz, g, hg, nc, q, q).mul_((c @ b.transpose(-1, -2))[:, :, None])
+    y = mix @ xdt                                               # [B, H, c, q, P]
+    del mix
+    # each chunk's own final state, heads of a group side by side
+    xs = (xdt * torch.exp(cum[..., -1:] - cum)[..., None]).view(
+        bsz, g, hg, nc, q, p).permute(0, 1, 3, 2, 5, 4).reshape(
+        bsz, g, nc, hg * p, q)
+    states = (xs @ b).view(bsz, g, nc, hg, p, n)
+    # passed from chunk to chunk
+    chunk_decay = torch.exp(cum[..., -1]).view(bsz, g, hg, nc)
+    s = torch.zeros_like(states[:, :, 0])
+    entering = []
+    for k in range(nc):
+        entering.append(s)
+        s = chunk_decay[..., k, None, None] * s + states[:, :, k]
+    entering = torch.stack(entering, 2).view(bsz, g, nc, hg * p, n)
+    # the entering state read at each position
+    y_in = (c @ entering.transpose(-1, -2)).view(bsz, g, nc, q, hg, p)
+    y_in = y_in.permute(0, 1, 4, 2, 3, 5).reshape(bsz, h, nc, q, p)
+    y = y + y_in * torch.exp(cum)[..., None]
+    return y.permute(0, 2, 3, 1, 4).reshape(bsz, nc * q, h, p)[:, :t]
+
+
+class Mamba2Mixer(nn.Module):
+    """Mamba-2's mixer as Granite-4.0-H has it, on [B, T, d]: one input
+    projection (no bias) split into z, xBC and dt; a causal depthwise
+    convolution over xBC (with bias) and silu, split into x, B and C;
+    dt = softplus(dt + dt_bias) and A = -exp(A_log) per head; the SSD scan
+    (`ssd_chunked`) plus the skip D x; the gate y * silu(z) normalised by an
+    RMSNorm over all of the inner width (one group); the output projection
+    (no bias). `A_log`, `D` and `dt_bias` are the mixer's own leaves in the
+    flax layout (`flax_params`); a fresh mixer draws them as Mamba-2 does
+    (`reset_ssm_`)."""
+
+    flax_params = ("A_log", "D", "dt_bias")
+
+    def __init__(self, d_model: int, n_heads: int, head_dim: int,
+                 d_state: int, n_groups: int, d_conv: int, chunk: int,
+                 eps: float):
+        super().__init__()
+        self.n_heads, self.head_dim = n_heads, head_dim
+        self.d_state, self.n_groups, self.chunk = d_state, n_groups, chunk
+        self.inner = n_heads * head_dim
+        conv_dim = self.inner + 2 * n_groups * d_state
+        self.in_proj = nn.Linear(d_model, self.inner + conv_dim + n_heads,
+                                 bias=False)
+        self.conv = nn.Conv1d(conv_dim, conv_dim, d_conv, groups=conv_dim)
+        self.A_log = nn.Parameter(torch.zeros(n_heads))
+        self.D = nn.Parameter(torch.ones(n_heads))
+        self.dt_bias = nn.Parameter(torch.zeros(n_heads))
+        self.norm = RMSNorm(self.inner, eps)
+        self.out_proj = nn.Linear(self.inner, d_model, bias=False)
+
+    def flax_order(self):
+        return [self.in_proj, self.conv, self.norm, self.out_proj]
+
+    @torch.no_grad()
+    def reset_ssm_(self, g: torch.Generator, dt_min: float = 1e-3,
+                   dt_max: float = 0.1) -> None:
+        """Mamba-2's draws: A = -U[1, 16], dt_bias the softplus inverse of
+        a step log-uniform in [dt_min, dt_max], D = 1."""
+        h = self.n_heads
+        self.A_log.copy_(torch.log(1 + 15 * torch.rand(h, generator=g)))
+        dt = torch.exp(math.log(dt_min) + torch.rand(h, generator=g)
+                       * (math.log(dt_max) - math.log(dt_min)))
+        self.dt_bias.copy_(dt + torch.log(-torch.expm1(-dt)))
+        self.D.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bsz, t, _ = x.shape
+        h, p, gn = self.n_heads, self.head_dim, self.n_groups * self.d_state
+        z, xbc, dt = self.in_proj(x).split(
+            [self.inner, self.inner + 2 * gn, h], dim=-1)
+        with no_tf32_convs():
+            xbc = self.conv(F.pad(xbc.transpose(1, 2),
+                                  (self.conv.kernel_size[0] - 1, 0)))
+        xs, b, c = F.silu(xbc.transpose(1, 2)).split([self.inner, gn, gn],
+                                                     dim=-1)
+        xs = xs.reshape(bsz, t, h, p)
+        dt = F.softplus(dt + self.dt_bias)
+        with tracing.span("nww.ssm.scan", device=x.device, batch=bsz,
+                          length=t, heads=h, head_dim=p, state=self.d_state,
+                          groups=self.n_groups, chunk=self.chunk):
+            y = ssd_chunked(
+                xs, dt, -torch.exp(self.A_log),
+                b.reshape(bsz, t, self.n_groups, self.d_state),
+                c.reshape(bsz, t, self.n_groups, self.d_state), self.chunk)
+            y = y + self.D[:, None] * xs
+        if not tracing.capturing():
+            tracing.counters["ssm.scans"] += 1
+            tracing.counters["ssm.frames"] += bsz * t
+        y = y.reshape(bsz, t, self.inner) * F.silu(z)
+        return self.out_proj(self.norm(y))
+
+
+class _GraniteAttention(MultiHeadAttention):
+    """The hybrid's attention, its core in the device-timed span
+    `nww.attention.core` (utils/tracing.py)."""
+
+    def _core(self, q, k, v):
+        with tracing.span("nww.attention.core", device=q.device):
+            return super()._core(q, k, v)
+
+
+class GatedMLP(nn.Module):
+    """W_out(silu(x W_g) * x W_u), one input projection to twice the inner
+    width (gate first, then up), no biases."""
+
+    def __init__(self, d_model: int, inner: int):
+        super().__init__()
+        self.in_proj = nn.Linear(d_model, 2 * inner, bias=False)
+        self.out_proj = nn.Linear(inner, d_model, bias=False)
+
+    def flax_order(self):
+        return [self.in_proj, self.out_proj]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        gate, up = self.in_proj(x).chunk(2, dim=-1)
+        return self.out_proj(F.silu(gate) * up)
+
+
+class GraniteHybridLayer(nn.Module):
+    """h + r mixer(RMSNorm(h)), then h + r MLP(RMSNorm(h)); the mixer is a
+    Mamba-2 mixer or causal grouped-query attention without positions."""
+
+    def __init__(self, kind: str, d_model: int, inner: int, mamba: dict,
+                 attention: dict, residual_multiplier: float, eps: float):
+        super().__init__()
+        self.input_norm = RMSNorm(d_model, eps)
+        if kind == "mamba":
+            self.mixer = Mamba2Mixer(d_model, eps=eps, **mamba)
+        elif kind == "attention":
+            self.mixer = _GraniteAttention(
+                d_model, dropout=0.0, bias=False, causal=True, **attention)
+        else:
+            raise ValueError(f"unknown Granite layer type {kind!r}")
+        self.post_norm = RMSNorm(d_model, eps)
+        self.mlp = GatedMLP(d_model, inner)
+        self.residual_multiplier = residual_multiplier
+
+    def flax_order(self):
+        return [self.input_norm, self.mixer, self.post_norm, self.mlp]
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        r = self.residual_multiplier
+        h = h + r * self.mixer(self.input_norm(h))
+        return h + r * self.mlp(self.post_norm(h))
+
+
+class GraniteHybridModel(nn.Module):
+    """Granite-4.0-H's decoder stack over feature frames: h = m Dense(e)
+    (the token embedding's place, m the embedding multiplier), dropout, the
+    layers of `layer_types`, a final RMSNorm of the last frame (a causal
+    stack's summary), Dense."""
+
+    def __init__(self, input_shape, d_model: int, layer_types, inner: int,
+                 mamba: dict, attention: dict, residual_multiplier: float,
+                 embedding_multiplier: float, eps: float, embedding_dim: int,
+                 dropout_prob: float):
+        super().__init__()
+        self.embed = nn.Linear(int(input_shape[-1]), d_model)
+        self.dropout = nn.Dropout(dropout_prob)
+        self.blocks = nn.ModuleList(
+            GraniteHybridLayer(kind, d_model, inner, mamba, attention,
+                               residual_multiplier, eps)
+            for kind in layer_types)
+        self.norm = RMSNorm(d_model, eps)
+        self.dense = nn.Linear(d_model, embedding_dim)
+        self.embedding_multiplier = embedding_multiplier
+
+    def flax_order(self):
+        return [self.embed, *self.blocks, self.norm, self.dense]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.dropout(self.embed(x) * self.embedding_multiplier)
+        for block in self.blocks:
+            x = block(x)
+        return self.dense(self.norm(x[:, -1]))

@@ -3,7 +3,8 @@
 The counterpart of `build_backbone`, `_build_custom`, `WakeWordModule` and
 `Model` in `nanowakeword_tpu/models/model.py`: `model_type` selects one of
 the thirteen backbones of models/architectures.py with the reference's
-config keys, or a user's `torch.nn.Module` loaded from a file path or a
+config keys, the port's Granite-4.0-H hybrid (`granite_hybrid`, keys
+`granite_*`), or a user's `torch.nn.Module` loaded from a file path or a
 module name ("custom"). The head is Dense(E -> E/2) -> act -> Dropout ->
 Dense(-> 1).
 
@@ -109,10 +110,50 @@ def build_backbone(model_type: str, config, input_shape, layer_dim: int,
     if mt == "bcresnet":
         return A.BcResNetModel(input_shape, embedding_dim, dropout_prob,
                                activation), False
+    if mt == "granite_hybrid":
+        return _build_granite(config, input_shape, n_blocks, embedding_dim,
+                              dropout_prob), False
     if mt in {"custom", "custom_model"}:
         return _build_custom(config, input_shape, embedding_dim, dropout_prob,
                              activation), False
     raise ValueError(f"Unsupported model_type: '{model_type}'.")
+
+
+def _build_granite(config, input_shape, n_blocks: int, embedding_dim: int,
+                   dropout_prob: float) -> nn.Module:
+    """The Granite-4.0-H hybrid from its `granite_*` keys, whose defaults
+    are granite-4.0-h-micro's published values; the stack is the first
+    `n_blocks` entries of `granite_layer_types`."""
+    def get(key, default):
+        return config.get("granite_" + key, default)
+
+    d = int(get("d_model", 2048))
+    types = list(get("layer_types", A.GRANITE_LAYER_TYPES))
+    if not 0 < n_blocks <= len(types):
+        raise ValueError(f"n_blocks {n_blocks} is not within the "
+                         f"{len(types)} entries of granite_layer_types")
+    mamba = {"n_heads": int(get("mamba_n_heads", 64)),
+             "head_dim": int(get("mamba_d_head", 64)),
+             "d_state": int(get("mamba_d_state", 128)),
+             "n_groups": int(get("mamba_n_groups", 1)),
+             "d_conv": int(get("mamba_d_conv", 4)),
+             "chunk": int(get("mamba_chunk_size", 256))}
+    expand = int(get("mamba_expand", 2))
+    if expand * d != mamba["n_heads"] * mamba["head_dim"]:
+        raise ValueError(f"granite_mamba_expand x d_model ({expand * d}) is "
+                         "not granite_mamba_n_heads x granite_mamba_d_head "
+                         f"({mamba['n_heads'] * mamba['head_dim']})")
+    attention = {"n_head": int(get("attention_heads", 32)),
+                 "kv_heads": int(get("kv_heads", 8)),
+                 "scale": float(get("attention_multiplier", 0.015625))}
+    return A.GraniteHybridModel(
+        input_shape, d, types[:n_blocks],
+        inner=int(get("intermediate_size", 8192)), mamba=mamba,
+        attention=attention,
+        residual_multiplier=float(get("residual_multiplier", 0.22)),
+        embedding_multiplier=float(get("embedding_multiplier", 12.0)),
+        eps=float(get("rms_norm_eps", 1e-5)), embedding_dim=embedding_dim,
+        dropout_prob=dropout_prob)
 
 
 def _build_custom(config, input_shape, embedding_dim, dropout_prob,
@@ -213,7 +254,8 @@ def flax_init_(module: nn.Module, g: torch.Generator) -> None:
     lecun-normal kernels (fan-in over the kernel's input axes: the width for
     a Dense or an attention projection, channels per group times taps for a
     convolution), zero biases, unit norm scales, orthogonal recurrent
-    kernels. A custom backbone keeps its own initialization."""
+    kernels; Mamba-2's own draws for a mixer's A_log, dt_bias and D. A
+    custom backbone keeps its own initialization."""
     recurrent = {id(m.recurrent) for m in module.modules()
                  if isinstance(m, (FastGRU, FastLSTM))}
     # flax's GRUCell / OptimizedLSTMCell draw one orthogonal [H, H] kernel
@@ -246,17 +288,23 @@ def flax_init_(module: nn.Module, g: torch.Generator) -> None:
         elif isinstance(m, (nn.LayerNorm, nn.BatchNorm1d, nn.BatchNorm2d)):
             m.weight.fill_(1.0)
             m.bias.zero_()
+        elif isinstance(m, A.RMSNorm):
+            m.weight.fill_(1.0)
+        elif isinstance(m, A.Mamba2Mixer):
+            m.reset_ssm_(g)
 
 
 class Model:
     """Host-side model handle: a WakeWordModule on `device`, eval mode by
-    default; `train()` makes its parameters trainable."""
+    default; `train()` makes its parameters trainable. `seed` seeds the
+    flax initializers' draws; None skips them, for weights loaded next
+    (over a model of billions of parameters the draws take seconds)."""
 
     def __init__(self, config, model_name: str, n_classes: int = 1,
                  input_shape=(16, 96), model_type: str = "dnn",
                  layer_dim: int = 128, n_blocks: int = 1,
                  seconds_per_example: Optional[float] = None,
-                 dropout_prob: float = 0.5, seed: int = 10,
+                 dropout_prob: float = 0.5, seed: Optional[int] = 10,
                  device="cuda"):
         self.config = config
         self.model_name = model_name
@@ -285,7 +333,8 @@ class Model:
             backbone, self.embedding_dim, n_classes=n_classes,
             dropout_prob=dropout_prob, activation=activation,
             stateful=stateful)
-        flax_init_(self.module, torch.Generator().manual_seed(seed))
+        if seed is not None:
+            flax_init_(self.module, torch.Generator().manual_seed(seed))
         self.module.to(self.device)
         self.eval()
 

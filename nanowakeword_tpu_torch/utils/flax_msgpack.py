@@ -21,10 +21,16 @@ bfloat16 leaf, wrap its 16-bit patterns in `Bfloat16Bits`. The writer
 sorts map keys, as flax's tree flattening does, and writes the smallest
 msgpack form of each value, as `msgpack.packb` does, so a tree of numpy
 arrays serializes to the same bytes as under flax.
+
+Both directions stream: `msgpack_dump` writes each array's bytes from its
+own memory and `msgpack_load` reads them into the array's, so a payload of
+gigabytes (a `.nww` of the Granite hybrid holds 3 GB) is held once in
+memory, as its arrays.
 """
 
 from __future__ import annotations
 
+import io
 import struct
 
 import numpy as np
@@ -36,16 +42,26 @@ _CHUNKED = "__msgpack_chunked_array__"
 
 
 class _Reader:
-    def __init__(self, buf: bytes):
-        self.buf = memoryview(buf)
+    """A msgpack decoder over a binary stream. An array's bytes are read
+    straight into the array's own memory (`readinto`), so a file is copied
+    once, into the arrays, whatever its size."""
+
+    def __init__(self, stream):
+        self.stream = stream
         self.pos = 0
 
-    def take(self, n: int) -> memoryview:
-        if self.pos + n > len(self.buf):
+    def take(self, n: int) -> bytes:
+        out = self.stream.read(n)
+        if len(out) != n:
             raise ValueError("truncated msgpack data")
-        out = self.buf[self.pos:self.pos + n]
         self.pos += n
         return out
+
+    def take_into(self, arr: np.ndarray) -> None:
+        view = memoryview(arr.reshape(-1).view(np.uint8))
+        if self.stream.readinto(view) != view.nbytes:
+            raise ValueError("truncated msgpack data")
+        self.pos += view.nbytes
 
     def unpack(self, fmt: str):
         (value,) = struct.unpack(fmt, self.take(struct.calcsize(fmt)))
@@ -73,7 +89,7 @@ class _Reader:
             kind, fmt = _SIZED[b]
             n = self.unpack(fmt)
             if kind == "bin":
-                return bytes(self.take(n))
+                return self.take(n)
             if kind == "str":
                 return self.read_str(n)
             if kind == "array":
@@ -88,7 +104,7 @@ class _Reader:
         raise ValueError(f"unsupported msgpack type byte 0x{b:02x}")
 
     def read_str(self, n: int) -> str:
-        return bytes(self.take(n)).decode("utf-8")
+        return self.take(n).decode("utf-8")
 
     def read_array(self, n: int) -> list:
         return [self.read() for _ in range(n)]
@@ -101,15 +117,38 @@ class _Reader:
         return out
 
     def read_ext(self, code: int, n: int):
-        data = bytes(self.take(n))
-        if code == _EXT_NDARRAY:
-            return _ndarray_from_bytes(data)
-        if code == _EXT_NPSCALAR:
-            return _ndarray_from_bytes(data)[()]
+        if code in (_EXT_NDARRAY, _EXT_NPSCALAR):
+            end = self.pos + n
+            arr = self.read_ndarray()
+            if self.pos != end:
+                raise ValueError("malformed msgpack ndarray")
+            return arr[()] if code == _EXT_NPSCALAR else arr
+        data = self.take(n)
         if code == _EXT_COMPLEX:
-            re, im = _Reader(data).read()
+            re, im = _Reader(io.BytesIO(data)).read()
             return complex(re, im)
         raise ValueError(f"unsupported msgpack ext code {code}")
+
+    def read_ndarray(self) -> np.ndarray:
+        """The body of an ndarray ext, ``(shape, dtype_name, bytes)``, its
+        bytes read into a new array; bfloat16 decodes to float32."""
+        if self.take(1)[0] != 0x93:
+            raise ValueError("malformed msgpack ndarray")
+        shape, dtype_name = self.read(), self.read()
+        head = self.take(1)[0]
+        if head not in _BIN:
+            raise ValueError("malformed msgpack ndarray")
+        n = self.unpack(_BIN[head])
+        bf16 = dtype_name == "bfloat16"
+        dtype = np.dtype(np.uint16 if bf16 else dtype_name)
+        count = int(np.prod(shape, dtype=np.int64))
+        if n != count * dtype.itemsize:
+            raise ValueError("malformed msgpack ndarray")
+        arr = np.empty(count, dtype)
+        self.take_into(arr)
+        if bf16:
+            arr = (arr.astype(np.uint32) << 16).view(np.float32)
+        return arr.reshape(shape)
 
 
 _SIZED = {
@@ -119,22 +158,13 @@ _SIZED = {
     0xDC: ("array", ">H"), 0xDD: ("array", ">I"),
     0xDE: ("map", ">H"), 0xDF: ("map", ">I"),
 }
+_BIN = {0xC4: ">B", 0xC5: ">H", 0xC6: ">I"}
 _FIXEXT = {0xD4: 1, 0xD5: 2, 0xD6: 4, 0xD7: 8, 0xD8: 16}
 _NUMBERS = {
     0xCA: ">f", 0xCB: ">d",
     0xCC: ">B", 0xCD: ">H", 0xCE: ">I", 0xCF: ">Q",
     0xD0: ">b", 0xD1: ">h", 0xD2: ">i", 0xD3: ">q",
 }
-
-
-def _ndarray_from_bytes(data: bytes) -> np.ndarray:
-    shape, dtype_name, raw = _Reader(data).read()
-    if dtype_name == "bfloat16":
-        bits = np.frombuffer(raw, np.uint16).astype(np.uint32) << 16
-        arr = bits.view(np.float32)
-    else:
-        arr = np.frombuffer(raw, np.dtype(dtype_name)).copy()
-    return arr.reshape(shape)
 
 
 def _unchunk(tree):
@@ -147,18 +177,23 @@ def _unchunk(tree):
     return {k: _unchunk(v) for k, v in tree.items()}
 
 
-def msgpack_restore(encoded: bytes):
-    """Flax msgpack bytes -> nested dicts of numpy arrays and scalars."""
-    reader = _Reader(encoded)
-    tree = reader.read()
-    if reader.pos != len(reader.buf):
+def msgpack_load(stream):
+    """A binary stream holding one flax msgpack object, to its end -> nested
+    dicts of numpy arrays and scalars."""
+    tree = _Reader(stream).read()
+    if stream.read(1):
         raise ValueError("trailing bytes after msgpack object")
     return _unchunk(tree)
 
 
+def msgpack_restore(encoded: bytes):
+    """Flax msgpack bytes -> nested dicts of numpy arrays and scalars."""
+    return msgpack_load(io.BytesIO(encoded))
+
+
 def read_msgpack_file(path: str):
     with open(path, "rb") as f:
-        return msgpack_restore(f.read())
+        return msgpack_load(f)
 
 
 # -- writer ------------------------------------------------------------------------
@@ -206,68 +241,95 @@ def _sized(n: int, fix: int, fix_max: int, codes) -> bytes:
     raise ValueError(f"msgpack object too large ({n})")
 
 
-def _pack_ext(code: int, data: bytes) -> bytes:
+def _ext_head(code: int, n: int) -> bytes:
     fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
-    if len(data) in fixed:
-        head = bytes([fixed[len(data)]])
+    head = bytes([fixed[n]]) if n in fixed else \
+        _sized(n, None, 0, (0xC7, 0xC8, 0xC9))
+    return head + struct.pack(">b", code)
+
+
+def _array_chunks(code: int, shape, dtype_name: str, arr: np.ndarray):
+    """An ndarray ext, ``(shape, dtype_name, C-order bytes)``; the bytes are
+    a view of the array's memory."""
+    data = memoryview(np.ascontiguousarray(arr).reshape(-1).view(np.uint8))
+    head = (b"\x93" + _pack(list(int(s) for s in shape)) + _pack(dtype_name)
+            + _sized(data.nbytes, None, 0, (0xC4, 0xC5, 0xC6)))
+    yield _ext_head(code, len(head) + data.nbytes)
+    yield head
+    yield data
+
+
+def _chunks(obj):
+    """The msgpack encoding of `obj` as a sequence of bytes and views, in
+    order; an array's data is not copied."""
+    if isinstance(obj, Bfloat16Bits):
+        yield from _array_chunks(_EXT_NDARRAY, obj.bits.shape, "bfloat16",
+                                 obj.bits)
+    elif isinstance(obj, np.ndarray):
+        if obj.dtype.hasobject:
+            raise ValueError("object arrays cannot be serialized")
+        yield from _array_chunks(_EXT_NDARRAY, obj.shape, obj.dtype.name,
+                                 obj)
+    elif isinstance(obj, np.generic):
+        yield from _array_chunks(_EXT_NPSCALAR, (), obj.dtype.name,
+                                 np.asarray(obj))
+    elif isinstance(obj, (list, tuple)):
+        yield _sized(len(obj), 0x90, 15, (None, 0xDC, 0xDD))
+        for v in obj:
+            yield from _chunks(v)
+    elif isinstance(obj, dict):
+        yield _sized(len(obj), 0x80, 15, (None, 0xDE, 0xDF))
+        for k in sorted(obj):
+            yield from _chunks(k)
+            yield from _chunks(obj[k])
     else:
-        head = _sized(len(data), None, 0, (0xC7, 0xC8, 0xC9))
-    return head + struct.pack(">b", code) + data
+        yield _pack_scalar(obj)
 
 
-def _ndarray_bytes(shape, dtype_name: str, raw: bytes) -> bytes:
-    return _pack([list(int(s) for s in shape), dtype_name, raw])
-
-
-def _pack(obj) -> bytes:
+def _pack_scalar(obj) -> bytes:
     if obj is None:
         return b"\xc0"
     if obj is True:
         return b"\xc3"
     if obj is False:
         return b"\xc2"
-    if isinstance(obj, Bfloat16Bits):
-        return _pack_ext(_EXT_NDARRAY, _ndarray_bytes(
-            obj.bits.shape, "bfloat16", obj.bits.tobytes("C")))
-    if isinstance(obj, np.ndarray):
-        if obj.dtype.hasobject:
-            raise ValueError("object arrays cannot be serialized")
-        return _pack_ext(_EXT_NDARRAY, _ndarray_bytes(
-            obj.shape, obj.dtype.name, obj.tobytes("C")))
-    if isinstance(obj, np.generic):
-        return _pack_ext(_EXT_NPSCALAR, _ndarray_bytes(
-            (), obj.dtype.name, np.asarray(obj).tobytes("C")))
     if isinstance(obj, int):
         return _pack_int(obj)
     if isinstance(obj, float):
         return b"\xcb" + struct.pack(">d", obj)
     if isinstance(obj, complex):
-        return _pack_ext(_EXT_COMPLEX, _pack([obj.real, obj.imag]))
+        data = _pack([obj.real, obj.imag])
+        return _ext_head(_EXT_COMPLEX, len(data)) + data
     if isinstance(obj, str):
         data = obj.encode("utf-8")
         return _sized(len(data), 0xA0, 31, (0xD9, 0xDA, 0xDB)) + data
     if isinstance(obj, (bytes, bytearray)):
         return _sized(len(obj), None, 0, (0xC4, 0xC5, 0xC6)) + bytes(obj)
-    if isinstance(obj, (list, tuple)):
-        return (_sized(len(obj), 0x90, 15, (None, 0xDC, 0xDD))
-                + b"".join(_pack(v) for v in obj))
-    if isinstance(obj, dict):
-        out = [_sized(len(obj), 0x80, 15, (None, 0xDE, 0xDF))]
-        for k in sorted(obj):
-            out.append(_pack(k))
-            out.append(_pack(obj[k]))
-        return b"".join(out)
     raise TypeError(f"cannot serialize {type(obj).__name__} to msgpack")
+
+
+def _pack(obj) -> bytes:
+    return b"".join(_chunks(obj))
+
+
+def _check_sizes(tree) -> None:
+    if isinstance(tree, dict):
+        for v in tree.values():
+            _check_sizes(v)
+    elif isinstance(tree, np.ndarray) and tree.nbytes > 2 ** 30:
+        raise ValueError("arrays above 1 GiB are not supported")
 
 
 def msgpack_serialize(tree) -> bytes:
     """Nested dicts of numpy arrays (and scalars, strings, lists) -> flax
     msgpack bytes. Arrays above 1 GiB, which flax would chunk, raise."""
-    def check(t):
-        if isinstance(t, dict):
-            for v in t.values():
-                check(v)
-        elif isinstance(t, np.ndarray) and t.nbytes > 2 ** 30:
-            raise ValueError("arrays above 1 GiB are not supported")
-    check(tree)
+    _check_sizes(tree)
     return _pack(tree)
+
+
+def msgpack_dump(tree, stream) -> None:
+    """`msgpack_serialize(tree)` written to a binary stream piece by piece,
+    each array's bytes from its own memory."""
+    _check_sizes(tree)
+    for chunk in _chunks(tree):
+        stream.write(chunk)

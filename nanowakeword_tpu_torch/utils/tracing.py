@@ -18,7 +18,10 @@ the graph helpers, the kernel builder and the interpreter add to it:
   zeroed it);
 - `interpreter.verifier_skipped`: chunks on which the one-call step, split
   at the gate, did not run the cascade's verifier (for such a step
-  `verifier_runs` + `verifier_skipped` = `chunks`).
+  `verifier_runs` + `verifier_skipped` = `chunks`);
+- `ssm.scans`, `ssm.frames`: the Granite hybrid's Mamba-2 scans run
+  outside a CUDA-graph capture, and the frames (batch x length) they
+  scanned (a replay of a captured step adds to neither).
 
 `span(name, device=False, **attrs)` marks a stage of the program. Off (the
 default) it returns one shared no-op context. It is on inside
@@ -67,6 +70,11 @@ The span names, from the entry points down:
     nww.run_batch          _LocalSession.run_batch:
       nww.session.upload     the features' copy to the device     (device)
       nww.session.forward    the classifier and its sigmoid       (device)
+        nww.ssm.scan           a Mamba-2 mixer's SSD scan, from its inputs
+                               to y before the gate; attrs batch, length,
+                               heads, head_dim, state, groups, chunk (device)
+        nww.attention.core     Q K^T, the mask, the softmax and A V of a
+                               Granite hybrid's attention layer   (device)
       nww.session.download   the scores' copy to the host         (device)
 """
 
@@ -85,7 +93,8 @@ import torch
 COUNTERS = ("mel.launches", "mel.captured", "mix.launches",
             "graph.captures", "graph.replays", "kernels.built",
             "interpreter.chunks", "interpreter.verifier_runs",
-            "interpreter.verifier_served", "interpreter.verifier_skipped")
+            "interpreter.verifier_served", "interpreter.verifier_skipped",
+            "ssm.scans", "ssm.frames")
 counters = dict.fromkeys(COUNTERS, 0)
 
 MAX_SPANS = 1 << 16          # the store keeps the newest spans of a session
@@ -165,7 +174,8 @@ def _stack() -> list:
     return stack
 
 
-def _capturing() -> bool:
+def capturing() -> bool:
+    """A stream is being captured into a CUDA graph."""
     return torch.cuda.is_initialized() and \
         torch.cuda.is_current_stream_capturing()
 
@@ -235,7 +245,7 @@ def span(name: str, device=False, **attrs):
     if not (_state.recording or _profiler_enabled()):
         _state.live = False
         return NO_SPAN
-    if _capturing():
+    if capturing():
         return NO_SPAN
     if not _state.live:
         _state.session = _Session()
