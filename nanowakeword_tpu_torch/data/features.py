@@ -28,6 +28,7 @@ step keeps reading and writing the memory that `feature_buffer` and
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 from typing import NamedTuple
@@ -48,6 +49,11 @@ from nanowakeword_tpu_torch.utils import tracing
 MEL_BUFFER_FRAMES = 970      # ~10 s of mel history
 FEATURE_BUFFER_FRAMES = 120  # ~10 s of embeddings
 CHUNK = melops.CHUNK         # 1280 samples / 80 ms
+# The most page-locked host memory one `embed_clips` call on a card writes
+# its embeddings into. A larger result (a whole dataset in one call) goes
+# to pageable memory through one batch-sized pinned block, so that a call
+# does not leave that much memory pinned in torch's host cache.
+PINNED_OUTPUT_MAX_BYTES = 256 << 20
 
 # Streaming emits one embedding per chunk from the newest 76 mel frames;
 # those windows end at multiples of 8, i.e. start at offset 4 (mod 8). The
@@ -62,6 +68,38 @@ def batch_embedding_frames(n_mel: int) -> int:
     if n_mel < EMB_OFFSET + EMB_WINDOW:
         return 0
     return (n_mel - EMB_OFFSET - EMB_WINDOW) // EMB_STRIDE + 1
+
+
+def _host_output(n: int, emb: torch.Tensor, batch_size: int):
+    """The host tensor of one `embed_clips` call, [n, *emb.shape[1:]] in
+    emb's dtype, and the pinned block its batches pass through on their
+    way there (None where they land in it directly). Allocated anew each
+    call: torch's caching host allocator hands a pinned block back once
+    the previous call's array is dropped."""
+    shape = (n,) + tuple(emb.shape[1:])
+    if emb.device.type != "cuda":
+        return torch.empty(shape, dtype=emb.dtype), None
+    if n * emb[0].numel() * emb.element_size() <= PINNED_OUTPUT_MAX_BYTES:
+        return torch.empty(shape, dtype=emb.dtype, pin_memory=True), None
+    stage = torch.empty((batch_size,) + shape[1:], dtype=emb.dtype,
+                        pin_memory=True)
+    return torch.empty(shape, dtype=emb.dtype), stage
+
+
+def _download(emb: torch.Tensor, rows: torch.Tensor, stage) -> bool:
+    """One batch's embeddings into its rows of the host output; True where
+    they crossed into page-locked memory. A direct copy is asynchronous:
+    the caller synchronises once after its last batch."""
+    if emb.device.type != "cuda":
+        rows.copy_(emb)
+        return False
+    if stage is None:
+        rows.copy_(emb, non_blocking=True)
+    else:
+        block = stage[:emb.shape[0]]
+        block.copy_(emb)        # blocking: the host reads the block next
+        rows.copy_(block)
+    return True
 
 
 class StreamState(NamedTuple):
@@ -194,7 +232,14 @@ class AudioFeatures:
         array or a torch tensor (a tensor already on the device is used
         where it lies). `mesh` shards each batch over its data axis; "auto"
         is every visible card when there is more than one, None one
-        device."""
+        device.
+
+        The result is one host array, each batch written into its rows:
+        on a card, in page-locked memory when it holds at most
+        PINNED_OUTPUT_MAX_BYTES (the batches' copies are asynchronous, and
+        uploading the array again, as `run_batch` does, is a direct copy),
+        else in pageable memory through a batch-sized pinned block. Every
+        call returns a new array; no later call writes into it."""
         del ncpu
         if isinstance(mesh, str):
             mesh = self._default_mesh()
@@ -202,10 +247,12 @@ class AudioFeatures:
             x = torch.from_numpy(np.asarray(x))
         if x.ndim == 1:
             x = x[None]
+        if x.shape[0] == 0:
+            raise ValueError("embed_clips needs at least one clip")
         # int16 PCM goes to the device unconverted: half the bytes, and the
         # kernel converts in registers (int16 -> f32 is exact)
         in_dtype = torch.int16 if x.dtype == torch.int16 else torch.float32
-        outs = []
+        out = None
         with tracing.span("nww.embed_clips"):
             for i in range(0, x.shape[0], batch_size):
                 batch = x[i:i + batch_size]
@@ -214,12 +261,22 @@ class AudioFeatures:
                                       device=self.device):
                         audio = batch.to(self.device, in_dtype).contiguous()
                     emb = self._embed_impl(audio)
-                    with tracing.span("nww.features.download",
-                                      device=self.device):
-                        outs.append(emb.cpu().numpy())
-                else:
-                    outs.append(self._embed_sharded(batch, in_dtype, mesh))
-        return np.concatenate(outs, axis=0)
+                    download = tracing.span("nww.features.download",
+                                            device=self.device)
+                else:   # downloaded inside, under the same span's name
+                    emb = torch.from_numpy(
+                        self._embed_sharded(batch, in_dtype, mesh))
+                    download = contextlib.nullcontext()
+                if out is None:
+                    out, stage = _host_output(x.shape[0], emb, batch_size)
+                with download:
+                    pinned = _download(emb, out[i:i + emb.shape[0]], stage)
+                tracing.counters["features.downloads"] += 1
+                tracing.counters["features.downloads_pinned"] += pinned
+            if self.device.type == "cuda" and mesh is None:
+                # the batches' asynchronous copies into the pinned output
+                torch.cuda.current_stream(self.device).synchronize()
+        return out.numpy()
 
     def _default_mesh(self):
         from nanowakeword_tpu_torch.parallel.mesh import make_mesh

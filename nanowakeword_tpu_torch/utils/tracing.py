@@ -22,6 +22,11 @@ the graph helpers, the kernel builder and the interpreter add to it:
 - `ssm.scans`, `ssm.frames`: the Granite hybrid's Mamba-2 scans run
   outside a CUDA-graph capture, and the frames (batch x length) they
   scanned (a replay of a captured step adds to neither).
+- `features.downloads`, `features.downloads_pinned`: batches whose
+  embeddings `AudioFeatures.embed_clips` copied to the host, and those
+  among them that landed in page-locked memory (the call's pinned output,
+  or its pinned staging block where the output is too large to pin); on
+  the CPU the second stays put.
 
 `span(name, device=False, **attrs)` marks a stage of the program. Off (the
 default) it returns one shared no-op context. It is on inside
@@ -66,7 +71,8 @@ The span names, from the entry points down:
       nww.features.upload    the clips' copy to the device        (device)
       nww.features.mel       the log-mel (the kernel's launch)    (device)
       nww.features.encoder   the speech encoder                   (device)
-      nww.features.download  the embeddings' copy to the host     (device)
+      nww.features.download  the embeddings' copy to the host, pinned and
+                             asynchronous on a card               (device)
     nww.run_batch          _LocalSession.run_batch:
       nww.session.upload     the features' copy to the device     (device)
       nww.session.forward    the classifier and its sigmoid       (device)
@@ -94,7 +100,8 @@ COUNTERS = ("mel.launches", "mel.captured", "mix.launches",
             "graph.captures", "graph.replays", "kernels.built",
             "interpreter.chunks", "interpreter.verifier_runs",
             "interpreter.verifier_served", "interpreter.verifier_skipped",
-            "ssm.scans", "ssm.frames")
+            "ssm.scans", "ssm.frames", "features.downloads",
+            "features.downloads_pinned")
 counters = dict.fromkeys(COUNTERS, 0)
 
 MAX_SPANS = 1 << 16          # the store keeps the newest spans of a session

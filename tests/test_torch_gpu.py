@@ -939,3 +939,51 @@ def test_bulk_spans_time_the_device(cuda):
     for s in snap.named("nww.features.mel"):
         assert 0.95 * kernel_ms <= s.device_ms <= kernel_ms + 0.1, \
             (s.device_ms, kernel_ms)
+
+
+def test_embed_clips_lands_in_pinned_memory(cuda, monkeypatch):
+    """512 tone clips of 2 s at batch 256: the result is page-locked and
+    equals the eager per-batch download bit for bit; a second call (on the
+    clips reversed) leaves it as it was; with the output over
+    PINNED_OUTPUT_MAX_BYTES the staged route gives the same values in
+    pageable memory. Each call counts two downloads, both pinned."""
+    from nanowakeword_tpu_torch.data import features as features_mod
+    from nanowakeword_tpu_torch.export.frontend import seeded_audio
+    from nanowakeword_tpu_torch.utils import tracing
+    frontend = AudioFeatures(device=cuda)
+    clips = torch.from_numpy(
+        np.round(seeded_audio(512, 32000, seed=5)).astype(np.int16))
+
+    def per_batch(x):
+        with torch.no_grad():
+            return np.concatenate([
+                frontend._embed_impl(x[i:i + 256].to(cuda)).cpu().numpy()
+                for i in (0, 256)])
+
+    expected = per_batch(clips)
+    assert expected.std(axis=0).max() > 0.1
+
+    def call(x):
+        names = ("features.downloads", "features.downloads_pinned")
+        before = [tracing.counters[k] for k in names]
+        out = frontend.embed_clips(x, batch_size=256)
+        assert [tracing.counters[k] - b
+                for k, b in zip(names, before)] == [2, 2]
+        assert out.shape == (512, 16, 96) and out.dtype == np.float32
+        assert out.flags.c_contiguous and out.flags.writeable
+        return out
+
+    first = call(clips)
+    assert torch.from_numpy(first).is_pinned()
+    np.testing.assert_array_equal(first, expected)
+    second = call(clips.flip(0))
+    assert torch.from_numpy(second).is_pinned()
+    assert not np.shares_memory(first, second)
+    np.testing.assert_array_equal(first, expected)
+    np.testing.assert_array_equal(second, per_batch(clips.flip(0)))
+
+    monkeypatch.setattr(features_mod, "PINNED_OUTPUT_MAX_BYTES",
+                        first.nbytes - 1)
+    staged = call(clips)
+    assert not torch.from_numpy(staged).is_pinned()
+    np.testing.assert_array_equal(staged, expected)

@@ -26,6 +26,7 @@ from nanowakeword_tpu_torch.models.embedding import EMB_WINDOW
 from nanowakeword_tpu_torch.ops import mel_cuda
 from nanowakeword_tpu_torch.ops.mel import n_mel_frames
 from nanowakeword_tpu_torch.runtime import Chunker
+from nanowakeword_tpu_torch.utils import tracing
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CRNN = os.path.join(ROOT, "campaign", "hey_nano_crnn.nww")
@@ -67,6 +68,41 @@ def test_embed_clips_matches_jax(port_features, kind):
     np.testing.assert_allclose(out, ref, atol=5e-3)
     if kind == "tone":       # the features move with the audio
         assert out.std(axis=1).max() > 0.1
+
+
+@pytest.mark.parametrize("batch_size", [1, 3, 5, 7],
+                         ids=["one", "ragged_3", "ragged_5", "whole"])
+def test_embed_clips_writes_each_batch_into_one_new_array(port_features,
+                                                          batch_size):
+    """7 clips of 1 s: the result is the per-batch embeddings joined, bit
+    for bit, in one C-contiguous writeable float32 array of the call's own
+    (a second call shares no memory with it); every batch counts as a
+    download, none as pinned on the CPU."""
+    def per_batch(x):
+        with torch.no_grad():
+            return np.concatenate([
+                port_features._embed_impl(torch.from_numpy(
+                    x[i:i + batch_size])).cpu().numpy()
+                for i in range(0, len(x), batch_size)], axis=0)
+
+    x = _clips("tone", 3, 7, 16000)
+    expected = per_batch(x)
+    before = dict(tracing.counters)
+    out = port_features.embed_clips(x, batch_size=batch_size)
+    assert tracing.counters["features.downloads"] \
+        == before["features.downloads"] + -(-7 // batch_size)
+    assert tracing.counters["features.downloads_pinned"] \
+        == before["features.downloads_pinned"]
+    assert out.shape == (7, batch_embedding_frames(n_mel_frames(16000)), 96)
+    assert out.dtype == np.float32
+    assert out.flags.c_contiguous and out.flags.writeable
+    np.testing.assert_array_equal(out, expected)
+    assert out.std(axis=0).max() > 0.1
+    other = x[::-1].copy()
+    again = port_features.embed_clips(other, batch_size=batch_size)
+    assert not np.shares_memory(out, again)
+    np.testing.assert_array_equal(out, expected)
+    np.testing.assert_array_equal(again, per_batch(other))
 
 
 @pytest.mark.parametrize("kind", ["noise", "tone"])
