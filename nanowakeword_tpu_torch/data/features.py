@@ -341,6 +341,15 @@ class AudioFeatures:
 
     # -- streaming path ----------------------------------------------------------
 
+    def take_chunks(self, x) -> np.ndarray:
+        """Accumulate raw audio -> the whole 1280-sample chunks it completes,
+        [n, 1280] float32, counted as emitted frames: the caller steps each
+        of them, in order (`stream_step_`, or a graph captured over it)."""
+        chunks = self._chunker.feed(np.asarray(x, np.float32).reshape(-1))
+        self.accumulated_samples = self._chunker.pending
+        self._frames_seen += chunks.shape[0]
+        return chunks
+
     @torch.no_grad()
     def _streaming_features(self, x) -> int:
         """Accumulate raw audio; process it in whole 1280-sample chunks.
@@ -348,25 +357,27 @@ class AudioFeatures:
         Returns the number of samples processed by this call (or the number
         accumulated so far if < 1280).
         """
-        chunks = self._chunker.feed(np.asarray(x, np.float32).reshape(-1))
+        chunks = self.take_chunks(x)
         if chunks.shape[0] == 0:
-            self.accumulated_samples = self._chunker.pending
             return self.accumulated_samples
         for chunk in chunks:
             self.stream_step_(torch.from_numpy(chunk).to(self.device))
-        self._frames_seen += chunks.shape[0]
-        self.accumulated_samples = self._chunker.pending
         return chunks.shape[0] * CHUNK
 
     def __call__(self, x) -> int:
         return self._streaming_features(x)
 
     @property
+    def frames_available(self) -> int:
+        """The embeddings emitted since reset, at most the ring's 120:
+        `feature_buffer`'s length, without copying the ring to the host."""
+        return min(self._frames_seen, FEATURE_BUFFER_FRAMES)
+
+    @property
     def feature_buffer(self) -> np.ndarray:
         """The embeddings emitted since reset (at most 120), newest last."""
         buf = self.state.feat_buf.cpu().numpy()
-        n = min(self._frames_seen, FEATURE_BUFFER_FRAMES)
-        return buf[FEATURE_BUFFER_FRAMES - n:]
+        return buf[FEATURE_BUFFER_FRAMES - self.frames_available:]
 
     def get_features(self, n_feature_frames: int = 16,
                      start_ndx: int = -1) -> np.ndarray:

@@ -367,10 +367,15 @@ class OnnxStreamingFrontend:
         return n_chunks * CHUNK
 
     @property
+    def frames_available(self) -> int:
+        """Frames emitted since reset, at most the ring's length:
+        `feature_buffer`'s length (AudioFeatures contract)."""
+        return min(self._frames_seen, self._feature_frames)
+
+    @property
     def feature_buffer(self) -> np.ndarray:
         """Frames emitted since reset, newest last."""
-        n = min(self._frames_seen, self._feature_frames)
-        return self._feat_buf[self._feature_frames - n:]
+        return self._feat_buf[self._feature_frames - self.frames_available:]
 
     def get_features(self, n_feature_frames: int = 16,
                      start_ndx: int = -1) -> np.ndarray:

@@ -356,15 +356,17 @@ class _FusedStep:
                 self._verifier_step, self.pre.device, (),
                 self.WARMUP_STEPS, pool=self.graph.pool(), side=side)
 
+    def reset(self) -> None:
+        """Put every carry back to the zero state, as `initial_carry`
+        makes it."""
+        for t in _tree_tensors(tuple(self.carries.values())):
+            t.zero_()
+
     def run(self, chunk: np.ndarray) -> dict:
-        """One [1280] float32 chunk -> {model: probability}, the split
+        """One [1280] float32 chunk, taken from the frontend
+        (`AudioFeatures.take_chunks`) -> {model: probability}, the split
         verifier left out."""
-        hidden = self.interp.hidden_states
         with tracing.span("nww.predict.upload"):
-            for name, carry in self.carries.items():
-                if hidden[name] is None:    # after reset(): the zero state
-                    for t in _tree_tensors(carry):
-                        t.zero_()
             self.chunk.copy_(torch.from_numpy(chunk))
         if self.use_graph and self.graph is None:
             self.capture()
@@ -375,9 +377,6 @@ class _FusedStep:
                 self._step()
         with tracing.span("nww.predict.readback"):
             scores = self.scores.cpu().numpy()
-        self.pre._frames_seen += 1
-        for name, carry in self.carries.items():
-            hidden[name] = carry
         return dict(zip(self.names, scores.astype(np.float64)))
 
     def run_verifier(self) -> np.float64:
@@ -726,28 +725,16 @@ class NanoInterpreter:
                                model_name=self.model_name,
                                gate_name=self.gate_name)
 
-    def _gate_is_low(self, model_key: str, chunk_scores: dict) -> bool:
-        """Whether `model_key` is the cascade's verifier and its gate, which
-        scored before it, stayed under the threshold."""
-        cfg = self.cascade_config
-        return bool(cfg) and model_key == cfg["verifier"] and \
-            chunk_scores.get(cfg["gate"], 0.0) < cfg["gate_threshold"]
-
-    def _zeroed(self, model_key: str, frames_avail: int,
+    def _zeroed(self, model_key: str, frames: int,
                 chunk_scores: dict) -> bool:
-        """Whether the one-call step's rules serve 0.0 for `model_key`
-        whatever it scored: its window is not yet filled with frames, or
-        its gate, served before it in `chunk_scores`, stayed low."""
-        return frames_avail < self.model_feature_length[model_key] \
-            or self._gate_is_low(model_key, chunk_scores)
-
-    def _served(self, model_key: str, raw: dict, frames_avail: int,
-                chunk_scores: dict) -> float:
-        """The score the one-call step's rules serve for `model_key` from
-        its raw score (`_zeroed`, then `_record_raw`)."""
-        if self._zeroed(model_key, frames_avail, chunk_scores):
-            return 0.0
-        return self._record_raw(model_key, float(raw[model_key]))
+        """Whether the rules serve 0.0 for `model_key` without scoring it:
+        its window is not yet filled with frames, or it is the cascade's
+        verifier and its gate, served before it in `chunk_scores`, stayed
+        under the threshold."""
+        cfg = self.cascade_config
+        return frames < self.model_feature_length[model_key] or (
+            bool(cfg) and model_key == cfg["verifier"]
+            and chunk_scores.get(cfg["gate"], 0.0) < cfg["gate_threshold"])
 
     def _record_raw(self, model_key: str, score: float) -> float:
         """Keep the raw score; the first 5 predictions are zeroed."""
@@ -775,51 +762,6 @@ class NanoInterpreter:
             self.post_processed_scores[model_key] = score
         return self._result(gated_scores)
 
-    def _predict_fused(self, x: np.ndarray, patience, threshold,
-                       debounce_time) -> DetectionResult:
-        """predict() over the one-call step; same semantics as the general
-        path. Only the last chunk fed in a call is served, so a split
-        verifier runs at most once a call: on the last chunk, and only if
-        the rules would serve its score. Any other model scores on every
-        chunk."""
-        pre, step = self.preprocessor, self._fused_step
-        with tracing.span("nww.predict.upload"):
-            chunks = pre._chunker.feed(np.asarray(x, np.float32).reshape(-1))
-            pre.accumulated_samples = pre._chunker.pending
-        n = chunks.shape[0]
-        if n == 0:
-            return self._result(self.post_processed_scores)
-
-        raw = {}
-        for chunk in chunks:
-            raw = step.run(chunk)
-        self._chunk_serial += n
-        counters["interpreter.chunks"] += n
-        frames_avail = min(pre._frames_seen, pre.state.feat_buf.shape[0])
-        verifier = self.cascade_config.get("verifier")
-        chunk_scores = {}
-        if step.verifier is not None:
-            gate = self.cascade_config["gate"]
-            chunk_scores[gate] = self._served(gate, raw, frames_avail, {})
-            ran = not self._zeroed(verifier, frames_avail, chunk_scores)
-            if ran:
-                raw[verifier] = step.run_verifier()
-            counters["interpreter.verifier_runs"] += ran
-            counters["interpreter.verifier_skipped"] += n - ran
-        elif verifier in raw:
-            counters["interpreter.verifier_runs"] += n
-
-        with tracing.span("nww.predict.rules"):
-            for model_key in self.models:
-                if model_key not in chunk_scores:   # a split gate's is
-                    chunk_scores[model_key] = self._served(
-                        model_key, raw, frames_avail, chunk_scores)
-            if verifier in raw and \
-                    not self._zeroed(verifier, frames_avail, chunk_scores):
-                counters["interpreter.verifier_served"] += 1
-            return self._finish(chunk_scores, x, patience, threshold,
-                                debounce_time, n * CHUNK)
-
     def predict(self, x: np.ndarray, patience: dict = {},
                 threshold: dict = {},
                 debounce_time: float = 0.0) -> DetectionResult:
@@ -844,45 +786,64 @@ class NanoInterpreter:
                 self.post_processed_scores[model_key] = score
             return self._result(chunk_scores)
 
-        if self._fused_step is not None:
-            return self._predict_fused(x, patience, threshold, debounce_time)
-
-        # the general path: one session.run per model
-        with tracing.span("nww.predict.features"):
-            n_prepared_samples = self.preprocessor(x)
-        if n_prepared_samples < CHUNK:
+        # advance the stream: the one-call step on each whole chunk, or the
+        # frontend's own step
+        pre, step = self.preprocessor, self._fused_step
+        raw = {}
+        if step is None:
+            with tracing.span("nww.predict.features"):
+                n = pre(x) // CHUNK
+        else:
+            with tracing.span("nww.predict.upload"):
+                chunks = pre.take_chunks(x)
+            for chunk in chunks:
+                raw = step.run(chunk)
+            n = chunks.shape[0]
+            if n:
+                self.hidden_states.update(step.carries)
+        if n == 0:
             return self._result(self.post_processed_scores)
-        self._chunk_serial += n_prepared_samples // CHUNK
-        counters["interpreter.chunks"] += n_prepared_samples // CHUNK
 
-        verifier = (self.cascade_config or {}).get("verifier")
-        chunk_scores = {}
+        # serve the call's last chunk, the models in registration order (a
+        # gate before its verifier): a model the rules zero is not scored,
+        # so a split verifier runs at most once a call
+        verifier = self.cascade_config.get("verifier")
+        frames = pre.frames_available
+        chunk_scores, scored = {}, False
         for model_key, session in self.models.items():
-            required_frames = self.model_feature_length[model_key]
-            if self.preprocessor.feature_buffer.shape[0] < required_frames \
-                    or self._gate_is_low(model_key, chunk_scores):
+            if self._zeroed(model_key, frames, chunk_scores):
                 chunk_scores[model_key] = 0.0
                 continue
-            with tracing.span("nww.session.run", model=model_key):
-                features = self.preprocessor.get_features(required_frames)
-                if self.is_stateful.get(model_key, False):
-                    score, new_carry = session.run(
-                        features, carry=self.hidden_states.get(model_key))
-                    self.hidden_states[model_key] = new_carry
-                else:
-                    score, _ = session.run(features)
-            if model_key == verifier:
-                counters["interpreter.verifier_runs"] += 1
-                counters["interpreter.verifier_served"] += 1
-            chunk_scores[model_key] = self._record_raw(model_key, score)
+            if model_key in raw:
+                score = raw[model_key]
+            elif step is not None:      # the verifier split off the step
+                score = step.run_verifier()
+            else:
+                with tracing.span("nww.session.run", model=model_key):
+                    score, self.hidden_states[model_key] = session.run(
+                        pre.get_features(self.model_feature_length[model_key]),
+                        carry=self.hidden_states[model_key])
+            scored |= model_key == verifier
+            chunk_scores[model_key] = self._record_raw(model_key, float(score))
+
+        self._chunk_serial += n
+        counters["interpreter.chunks"] += n
+        if verifier is not None:
+            in_call = verifier in raw   # the one call ran it on every chunk
+            counters["interpreter.verifier_runs"] += n if in_call else scored
+            if step is not None and not in_call:
+                counters["interpreter.verifier_skipped"] += n - scored
+            counters["interpreter.verifier_served"] += scored
         with tracing.span("nww.predict.rules"):
             return self._finish(chunk_scores, x, patience, threshold,
-                                debounce_time, n_prepared_samples)
+                                debounce_time, n * CHUNK)
 
     def reset(self):
         self.prediction_buffer.clear()
         if self.preprocessor is not None:
             self.preprocessor.reset()
+        if self._fused_step is not None:
+            self._fused_step.reset()
         for model_key in self.hidden_states:
             self.hidden_states[model_key] = None
         for model_key in self.raw_scores:

@@ -173,9 +173,7 @@ class _Connection:
         """int16 audio in -> the newest [1, n_frames, 96] window, or None
         while no whole chunk or not enough frames have come in."""
         processed = self.features(audio)
-        if processed < 1280:
-            return None
-        if self.features.feature_buffer.shape[0] < self.n_frames:
+        if processed < 1280 or self.features.frames_available < self.n_frames:
             return None
         return self.features.get_features(self.n_frames)
 

@@ -64,7 +64,9 @@ The span names, from the entry points down:
       nww.predict.readback   the scores' copy to the host (waits for the step)
       nww.step.verifier      a split cascade's verifier, its launch and its
                              score's copy to the host            (device)
-      nww.predict.rules      warm-up guard, cascade gate, VAD, patience
+      nww.predict.rules      the VAD gate, patience / debounce, the score
+                             buffers (after the warm-up guard and the
+                             cascade gate, which zero a model unscored)
       nww.predict.features   (general path) the feature step
       nww.session.run        (general path) one model's score; attrs model
     nww.embed_clips        AudioFeatures.embed_clips, per batch:

@@ -498,6 +498,47 @@ def test_stateful_verifier_stays_in_the_one_call(sgru_artifacts):
     _assert_close(verifier, ref_verifier, SCORE_TOL)
 
 
+# The 42-chunk clip fed 2.5 chunks a call (calls of two and three chunks)
+# from a reset: the changes of the four counters and the verifier module's
+# forward calls, per step kind. `split`: the shipped cascade, its stateless
+# verifier a call of its own; `one_call`: a stateful verifier behind the
+# shipped gate, inside the one call; `general`: the shipped cascade with
+# the one-call step taken away.
+@pytest.mark.parametrize("kind,changes,module_calls", [
+    pytest.param("split", {"chunks": 42, "verifier_runs": 6,
+                           "verifier_skipped": 36, "verifier_served": 6},
+                 6, id="split"),
+    pytest.param("one_call", {"chunks": 42, "verifier_runs": 42,
+                              "verifier_skipped": 0, "verifier_served": 6},
+                 42, id="one_call"),
+    pytest.param("general", {"chunks": 42, "verifier_runs": 6,
+                             "verifier_skipped": 0, "verifier_served": 6},
+                 6, id="general"),
+])
+def test_counters_of_each_step_kind(port_cascade, sgru_artifacts, kind,
+                                    changes, module_calls):
+    if kind == "one_call":
+        interp = NanoInterpreter.load_model(sgru_artifacts["port"],
+                                            gate_model=LITE, device="cpu")
+    else:
+        interp = port_cascade
+    verifier = interp.cascade_config["verifier"]
+    step = interp._fused_step
+    assert (step.verifier is None) == (kind == "one_call")
+    if kind == "general":
+        interp._fused_step = None
+    try:
+        before = _verifier_counters()
+        with _counted_calls(interp.models[verifier].model.module) as calls:
+            _cascade_trace(interp, _whole_chunks_clip(),
+                           chunk_size=CHUNK * 5 // 2)
+        after = _verifier_counters()
+    finally:
+        interp._fused_step = step
+    assert {k: after[k] - before[k] for k in after} == changes
+    assert len(calls) == module_calls
+
+
 def test_streaming_state_is_written_in_place(port_cascade_vad):
     """reset() and the stream step keep the same buffers: what a captured
     graph writes is what feature_buffer and get_features read."""

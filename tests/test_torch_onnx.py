@@ -348,8 +348,10 @@ def test_streaming_pair_reproduces_the_bulk_graph(frontend):
     assert stream(audio[0]) == (16000 // FE.CHUNK) * FE.CHUNK
     got = stream.get_features(bulk.shape[0])[0]
     np.testing.assert_allclose(got, bulk, rtol=0, atol=STREAM_TOL)
+    assert stream.frames_available == stream.feature_buffer.shape[0]
     stream.reset()
     assert stream.frames_seen == 0 and stream.feature_buffer.shape[0] == 0
+    assert stream.frames_available == 0
 
 
 def test_export_check_raises_on_a_tampered_graph(monkeypatch):

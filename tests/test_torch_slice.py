@@ -120,7 +120,7 @@ def test_streaming_equals_batch_after_warmup(port_features, kind):
     for c in range(len(x) // CHUNK):
         af(x[c * CHUNK:(c + 1) * CHUNK])
         stream.append(af.get_features(1)[0, 0])
-    assert af.feature_buffer.shape[0] == len(stream)
+    assert af.feature_buffer.shape[0] == len(stream) == af.frames_available
     for c in range(9, len(stream)):
         i = (8 * (c + 1) - EMB_WINDOW) // 8
         np.testing.assert_allclose(stream[c], batch[i], rtol=1e-4,
@@ -130,6 +130,7 @@ def test_streaming_equals_batch_after_warmup(port_features, kind):
     assert EMB_OFFSET == 4
     af.reset()
     assert af.feature_buffer.shape[0] == 0 and af.accumulated_samples == 0
+    assert af.frames_available == 0
 
 
 @pytest.fixture(scope="module")
